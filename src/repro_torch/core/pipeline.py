@@ -1,0 +1,69 @@
+"""Chunked chain-pipeline scheduler on one device (paper §III, Fig. 2).
+
+The paper's insight: a chain of n nodes streaming a block at network-buffer
+granularity costs ``T = tau_block + (n-1) * tau_buf`` instead of the classical
+``tau_block * max(k, m-1)``.
+
+On one card the n chain positions are a leading **node axis** of device
+tensors. Tick t in [0, num_chunks + n - 1): node i processes chunk
+ch = t - i when that chunk exists. The wire between neighbours is a
+ping-pong pair of buffers with one row per node: at tick t node i reads row
+i of the buffer written at tick t - 1 — the row node i - 1 wrote there — and
+writes row i + 1 of the other buffer. Row 0 is never written, so the head
+of the chain reads zeros. One tick is one kernel launch over the active
+nodes only, so nodes outside ``active_nodes`` cost nothing.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def num_ticks(num_chunks: int, n_stages: int) -> int:
+    return num_chunks + n_stages - 1
+
+
+def chain_perm(n: int, reverse: bool = False) -> list[tuple[int, int]]:
+    """Source→dest pairs for a non-wrapping chain.
+
+    Forward: node i -> i+1 (encode; the last node finishes the stream).
+    Reverse: node i+1 -> i (repair; node 0 finishes the stream).
+    """
+    if reverse:
+        return [(i + 1, i) for i in range(n - 1)]
+    return [(i, i + 1) for i in range(n - 1)]
+
+
+def chain_pos(idx, n: int, reverse: bool = False):
+    """Chain position played by node ``idx``."""
+    return (n - 1 - idx) if reverse else idx
+
+
+def active_nodes(t: int, n: int, num_chunks: int) -> tuple[int, int]:
+    """(first node, node count) with a chunk to process at tick t."""
+    lo = max(0, t - num_chunks + 1)
+    hi = min(n - 1, t)
+    return lo, hi - lo + 1
+
+
+def software_pipeline(step_fn: Callable, n: int, num_chunks: int,
+                      wire_shape: tuple[int, ...], *,
+                      device: torch.device) -> int:
+    """Run the chain pipeline over n nodes; returns the number of ticks.
+
+    ``step_fn(wire_in, wire_out, t, node_lo, node_count)`` runs one tick:
+    each active node i reads its incoming wire from ``wire_in[i]``, writes
+    its own results in place, and forwards into ``wire_out[i + 1]``.
+    ``wire_shape`` is the (rows, ...) shape of one int32 wire buffer; its
+    row 0 stays zero for the whole run.
+    """
+    if n < 1 or num_chunks < 1:
+        raise ValueError(f"need n >= 1 and num_chunks >= 1, got {n}, {num_chunks}")
+    wires = [torch.zeros(wire_shape, dtype=torch.int32, device=device)
+             for _ in range(2)]
+    ticks = num_ticks(num_chunks, n)
+    for t in range(ticks):
+        lo, count = active_nodes(t, n, num_chunks)
+        step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
+    return ticks

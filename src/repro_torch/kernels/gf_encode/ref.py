@@ -1,0 +1,93 @@
+"""Plain PyTorch versions of the tick kernels, on packed int32 lanes.
+
+Each function states the same math as its CUDA kernel in ``csrc/gf_tick.cu``
+with shifts and masks on int32 tensors. The CPU path runs them, the tests
+hold the JAX package against them, and ``chip_smoke.py`` holds the kernels
+against them on the card.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import gf
+
+
+def chain_step_ref(x_in: torch.Tensor, local: torch.Tensor, psi: np.ndarray,
+                   xi: np.ndarray, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One storage-node chunk step (Eqs. 3-4), packed int32.
+
+    x_in (1, C); local (max_b, C); psi/xi (max_b,) GF words.
+    Returns (c, x_out), each (1, C).
+    """
+    c = x_in.clone()
+    xo = x_in.clone()
+    for s in range(local.shape[0]):
+        c ^= gf.gf_mul_const_packed(local[s][None], int(xi[s]), l)
+        xo ^= gf.gf_mul_const_packed(local[s][None], int(psi[s]), l)
+    return c, xo
+
+
+def repair_step_ref(x_in: torch.Tensor, local: torch.Tensor, coeffs: np.ndarray,
+                    l: int) -> torch.Tensor:
+    """One helper's GF inner-product contribution, packed int32.
+
+    x_in (rows, C) partial sums; local (C,) the helper's shard chunk;
+    coeffs (rows,) the helper's column of the decode or repair matrix.
+    Returns x_in ^ coeffs[r] * local for every row r.
+    """
+    return torch.stack([x_in[r] ^ gf.gf_mul_const_packed(local, int(c), l)
+                        for r, c in enumerate(np.asarray(coeffs))])
+
+
+def _tick_nodes(t: int, node_lo: int, node_count: int, device):
+    nodes = torch.arange(node_lo, node_lo + node_count, device=device)
+    return nodes, t - nodes
+
+
+def chain_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
+                   local: torch.Tensor, out: torch.Tensor, bp_psi: torch.Tensor,
+                   bp_xi: torch.Tensor, l: int, t: int, num_chunks: int,
+                   node_lo: int, node_count: int) -> None:
+    """Plain version of ``kernel.chain_tick``: same shapes, same in-place writes.
+
+    Every mask ``(x >> b) & LSB`` feeds both the xi (kept) and the psi
+    (forwarded) accumulator, over all active nodes at once.
+    """
+    n, O, max_b, Bp = local.shape
+    S = Bp // num_chunks
+    nodes, ch = _tick_nodes(t, node_lo, node_count, local.device)
+    x = wire_in[node_lo:node_lo + node_count]                    # (a, O, S)
+    blocks = local.view(n, O, max_b, num_chunks, S)[nodes, :, :, ch]  # (a, O, max_b, S)
+    c = x.clone()
+    xo = x.clone()
+    for s in range(max_b):
+        for b in range(l):
+            m = (blocks[:, :, s] >> b) & gf.LSB_MASK[l]
+            c ^= m * bp_xi[nodes, s, b][:, None, None]
+            xo ^= m * bp_psi[nodes, s, b][:, None, None]
+    out.view(n, O, num_chunks, S)[nodes, :, ch] = c
+    wire_out[node_lo + 1:node_lo + node_count + 1] = xo
+
+
+def repair_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
+                    local: torch.Tensor, out: torch.Tensor, bp: torch.Tensor,
+                    l: int, t: int, num_chunks: int, node_lo: int,
+                    node_count: int) -> None:
+    """Plain version of ``kernel.repair_tick``: same shapes, same in-place
+    writes. One mask per bit, shared by all rows; the last node of the
+    chain writes the output chunk instead of the wire."""
+    n, O, Bp = local.shape
+    rows = bp.shape[1]
+    S = Bp // num_chunks
+    nodes, ch = _tick_nodes(t, node_lo, node_count, local.device)
+    acc = wire_in[node_lo:node_lo + node_count].clone()          # (a, O, rows, S)
+    blocks = local.view(n, O, num_chunks, S)[nodes, :, ch]        # (a, O, S)
+    for b in range(l):
+        m = (blocks >> b) & gf.LSB_MASK[l]
+        acc ^= m[:, :, None, :] * bp[nodes, :, b][:, None, :, None]
+    fwd = min(node_count, n - 1 - node_lo)   # nodes that forward a wire
+    wire_out[node_lo + 1:node_lo + fwd + 1] = acc[:fwd]
+    if fwd < node_count:
+        # the last node finishes the stream: its sums are the output chunk
+        out.view(O, rows, num_chunks, S)[:, :, t - (n - 1)] = acc[-1]
