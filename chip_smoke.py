@@ -21,8 +21,22 @@ last line:
    and in sampled windows against the host numpy field; the decoded object
    must equal the data.
 4. Replay the main path's ticks through each kernel and through its plain
-   version, check they agree, and time both; print one JSON line with
-   every kernel's numbers, then the device line.
+   version, check they agree, and time both.
+5. Hold the static-coefficient kernels (bit-plane ``gf_encode`` and bit-lift
+   ``gf_encode_mxu``) bit-exact against their plain versions on the card at
+   small, ragged shapes; print each kernel's median time there.
+6. The slice of the paper's other half on the same object: the atomic
+   classical encode (a (16,11) Cauchy Reed-Solomon code, the paper's CEC
+   baseline), the single-node RapidRAID encode (``atomic.encode_local``),
+   the bit-lift encode (``ops.encode_mxu``), repair of the 5 lost codeword
+   blocks from the 11 survivors (``repair.pipelined_repair`` as a reverse
+   chain of repair ticks, and ``repair.star_repair``) and a degraded read of
+   3 object blocks over a 2^19-word window. Each entry point runs once with
+   the counters set to 0 just before and read just after, and its result is
+   checked; then wall time of 5 repeats and peak device bytes.
+7. Replay each new kernel's launches of phase 6, and the repair ticks,
+   against the plain versions and time both; print one JSON line with every
+   kernel's numbers over all of the run's launches, then the device line.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -42,30 +56,50 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import gf, pipeline, rapidraid  # noqa: E402
+from repro_torch.core import classical, fault_tolerance, gf, pipeline, rapidraid  # noqa: E402
 from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
-from repro_torch.storage import chain  # noqa: E402
+from repro_torch.storage import atomic, chain, repair  # noqa: E402
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet and
-# Hopper white paper): HBM3 bandwidth, and the non-tensor INT32 rate
+# Hopper white paper): HBM3 bandwidth, the non-tensor INT32 rate
 # (132 SMs x 64 INT32 lanes x 2 ops x 1.98 GHz) — no tensor core computes a
-# GF(2^l) product, so the integer pipes are the peak for this arithmetic.
+# GF(2^l) product, so the integer pipes are the peak for the bit-plane
+# arithmetic — and the dense int8 tensor-core rate the bit-lift runs on.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
+INT8_OPS_PER_S = 1979e12
 
 N, K, L = 16, 11, 16
 NUM_CHUNKS = 8
 LOST = 5
+READ_BLOCKS = [0, 5, 10]
+READ_WORDS = 1 << 19
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
+    "gf_encode": "src/repro/kernels/gf_encode/kernel.py:68",
+    "gf_encode_mxu": "src/repro/kernels/gf_encode/kernel.py:241",
 }
-SOURCE = "src/repro_torch/kernels/gf_encode/csrc/gf_tick.cu"
+# Why each row's library_ms is null: there is no PyTorch call to time.
+_NO_GF = "no PyTorch call computes a GF(2^l) multiply-accumulate (no carry-less or finite-field product)"
+LIBRARY_WHY = {
+    "chain_tick": _NO_GF, "repair_tick": _NO_GF, "gf_encode": _NO_GF,
+    "gf_encode_mxu": "no PyTorch call computes the bit-lift with its unpack and mod-2 "
+                     "repack; an int8 matmul is only its middle step",
+}
+CSRC = "src/repro_torch/kernels/gf_encode/csrc/"
+SOURCE = {"chain_tick": CSRC + "gf_tick.cu", "repair_tick": CSRC + "gf_tick.cu",
+          "gf_encode": CSRC + "gf_encode.cu", "gf_encode_mxu": CSRC + "gf_mxu.cu"}
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def only(**launches: int) -> dict[str, int]:
+    """A ``launch_counts()`` dict: the given kernels' counts, every other 0."""
+    return {name: launches.get(name, 0) for name in kernel.launch_counts()}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -207,6 +241,257 @@ def replay(n: int, tick, wire_shape, dev, run_tick):
     return run
 
 
+def words_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Exact equality of two word tensors, compared as int32 (torch's CUDA
+    build has no comparison kernels for uint16)."""
+    return a.dtype == b.dtype and torch.equal(a.to(torch.int32), b.to(torch.int32))
+
+
+def add_work(work: dict, name: str, launches: int, ms: float, plain_ms: float,
+             nbytes: int, nops: int, int8_ops: int = 0) -> None:
+    w = work[name]
+    w["launches"] += launches
+    w["ms"] += ms
+    w["plain_ms"] += plain_ms
+    w["bytes"] += nbytes
+    w["ops"] += nops
+    w["int8_ops"] += int8_ops
+
+
+def report_work(name: str, w: dict, what: str) -> None:
+    bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = w["ops"] / INT32_OPS_PER_S * 1e3
+    int8_ms = w["int8_ops"] / INT8_OPS_PER_S * 1e3
+    print(f"{name} ({what}): {w['launches']} launches, {w['ms']:.3f} ms "
+          f"(plain {w['plain_ms']:.3f} ms), bound {max(bytes_ms, ops_ms, int8_ms):.3f} ms "
+          f"(bytes {bytes_ms:.3f}, int32 ops {ops_ms:.3f}, int8 ops {int8_ms:.3f})")
+
+
+def repair_tick_work(h: int, rows: int, Bp: int) -> tuple[int, int]:
+    """(bytes, int32 ops) of one run of repair ticks: per helper and lane,
+    the local lane and `rows` sums in, `rows` sums out; l masks and
+    rows * l multiply + xor."""
+    return h * (2 * rows + 1) * Bp * 4, h * (2 * L + 2 * rows * L) * Bp
+
+
+def encode_work(M: np.ndarray, O: int, Bp: int) -> tuple[int, int]:
+    """(bytes, int32 ops) of one gf_encode launch: k lanes in and rows out per
+    lane; a mask (shift, and) per (input row, bit) that some row uses and a
+    multiply + xor per nonzero plane term — what this matrix needs."""
+    planes = gf.bitplane_table(M, L)
+    rows, k = M.shape
+    masks = int(np.any(planes != 0, axis=0).sum())
+    return O * (k + rows) * Bp * 4, O * Bp * (2 * masks + 2 * int(np.count_nonzero(planes)))
+
+
+def mxu_work(M: np.ndarray, B: int, itemsize: int) -> tuple[int, int, int]:
+    """(bytes, int32 ops, int8 ops) of one gf_encode_mxu launch: k words in and
+    rows out per column; the unpack (shift, and per input bit) and the repack
+    (and, shift, or per output bit) on the integer pipes, and the lifted
+    (rows*l, k*l) int8 product, two operations per multiply-accumulate."""
+    rows, k = M.shape
+    return ((k + rows) * B * itemsize, B * (2 * k * L + 3 * rows * L),
+            2 * rows * L * k * L * B)
+
+
+def rand_words(rng: np.random.Generator, shape, l: int, dev) -> torch.Tensor:
+    return torch.from_numpy(rng.integers(0, 1 << l, size=shape).astype(gf.WORD_DTYPE[l])).to(dev)
+
+
+def phase_static_kernels(dev, seed: int, errs: dict) -> None:
+    """gf_encode and gf_encode_mxu against their plain versions, small shapes."""
+    rng = np.random.default_rng(seed + 5)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    for l, (rows, k) in itertools.product((8, 16), ((5, 11), (16, 11), (3, 4))):
+        M = rng.integers(0, 1 << l, size=(rows, k))
+        M[0, 0] = 0                                   # a zero coefficient
+        for O in (1, 3):
+            x = rand_i32(gen, (O, k, 499), dev)       # a ragged lane count
+            got = ops.encode_packed(M, x if O > 1 else x[0], l)
+            want = ref.encode_packed_many_ref(M, x, l)
+            torch.cuda.synchronize()
+            check(torch.equal(got if O > 1 else got[None], want),
+                  f"gf_encode l={l} ({rows},{k}) O={O}")
+            errs["gf_encode"] = max(errs["gf_encode"],
+                                    max_abs_err(got if O > 1 else got[None], want))
+            for B in (998, 1000, 1002):
+                xw = rand_words(rng, (O, k, B) if O > 1 else (k, B), l, dev)
+                gotw = ops._encode_mxu_any(M, xw, l)
+                wantw = (torch.stack([ref.bitlift_encode_ref(M, obj, l) for obj in xw])
+                         if O > 1 else ref.bitlift_encode_ref(M, xw, l))
+                torch.cuda.synchronize()
+                check(words_equal(gotw, wantw), f"gf_encode_mxu l={l} ({rows},{k}) "
+                                               f"O={O} B={B}")
+                errs["gf_encode_mxu"] = max(errs["gf_encode_mxu"], max_abs_err(gotw, wantw))
+        x = rand_i32(gen, (1, k, 499), dev)
+        planes = torch.from_numpy(gf.bitplane_table(M, l).astype(np.int32)).to(dev)
+        out = torch.empty((1, rows, 499), dtype=torch.int32, device=dev)
+        enc_ms = median_ms(lambda: kernel.gf_encode(x, planes, out, l, ops.pick_block(499)), 20)
+        xw = rand_words(rng, (k, 1002), l, dev)
+        lifted = torch.from_numpy(kernel.padded_bitlift(M, l)).to(dev)
+        outw = torch.empty((rows, 1002), dtype=xw.dtype, device=dev)
+        mxu_ms = median_ms(lambda: kernel.gf_encode_mxu(xw, lifted, outw, l), 20)
+        print(f"gf_encode l={l:2d} ({rows:2d},{k:2d}) O=1,3 Bp=499: bit-exact, median "
+              f"{enc_ms:.4f} ms; gf_encode_mxu B=998,1000,1002: bit-exact, median "
+              f"{mxu_ms:.4f} ms at B=1002")
+
+
+def first_call(name: str, fn, want_counts: dict):
+    """Run an entry point once with the counters at 0; returns (result, ms)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernel.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == want_counts, f"{name} launches {counts}, want {want_counts}")
+    warm = wall_ms(fn)
+    print(f"{name}: {ms:.3f} ms wall first call, {warm:.3f} ms median of 5 repeats, "
+          f"launches {counts}, peak {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} GiB above the resident inputs)")
+    return out
+
+
+def window_starts(B: int, rng: np.random.Generator) -> list[int]:
+    """Word offsets of 64-word, lane-aligned windows, some straddling chunks."""
+    chunk = B // NUM_CHUNKS
+    return [0, chunk - 32, 3 * chunk - 64, 5 * chunk - 2, B - 64,
+            int(rng.integers(0, B // 2 - 64)) * 2]
+
+
+def phase_slice(code, data_np, data_p, data, cw_p, lost, ids, shards, dev) -> dict:
+    """Each entry point of the slice once at full size, checked; returns the
+    inputs of its gf_encode and gf_encode_mxu launches for phase 7."""
+    B = data_np.shape[1]
+    ccode = classical.make_code(N, K, L)
+    lost_t = torch.tensor(lost, device=dev)
+    print(f"slice: classical ({N},{K}) Cauchy RS and the RapidRAID code over the "
+          f"same object; repair of nodes {lost} from {len(ids)} survivors; "
+          f"degraded read of blocks {READ_BLOCKS} over {READ_WORDS} words")
+
+    ccw = first_call("classical_distributed_encode",
+                     lambda: atomic.classical_distributed_encode(ccode, data),
+                     only(gf_encode=1))
+    ccw_p = gf.pack_u32(ccw, L)
+    check(tuple(ccw.shape) == (N, B), f"classical codeword shape {tuple(ccw.shape)}")
+    check(torch.equal(ccw_p[:K], data_p), "classical codeword: systematic rows == data")
+    check(torch.equal(ccw_p[K:], gf.gf_matvec_packed(ccode.parity_matrix, data_p, L)),
+          "classical parity == plain packed matvec on the card")
+    starts = window_starts(B, np.random.default_rng(1))
+    for s in starts:
+        win = ccw_p[K:, s // 2:s // 2 + 32].cpu().numpy().view(np.uint16)
+        want = classical.encode_np(ccode, data_np[:, s:s + 64])
+        check(np.array_equal(win, want), f"classical parity window at word {s} vs host")
+
+    loc = first_call("encode_local", lambda: atomic.encode_local(code, data_p),
+                     only(gf_encode=1))
+    check(torch.equal(loc, cw_p), "encode_local(G) == pipelined codeword")
+
+    mx = first_call("encode_mxu", lambda: ops.encode_mxu(code.G, data, L),
+                    only(gf_encode_mxu=1))
+    check(torch.equal(gf.pack_u32(mx, L), cw_p), "encode_mxu(G) == pipelined codeword")
+
+    helpers, R = fault_tolerance.repair_plan(code, lost, ids)
+    ticks = pipeline.num_ticks(NUM_CHUNKS, len(helpers))
+    rep = first_call("pipelined_repair",
+                     lambda: repair.pipelined_repair(code, ids, shards, lost,
+                                                     num_chunks=NUM_CHUNKS),
+                     only(repair_tick=ticks))
+    check(torch.equal(gf.pack_u32(rep, L), cw_p[lost_t]), "pipelined_repair == lost rows")
+    star = first_call("star_repair", lambda: repair.star_repair(code, ids, shards, lost),
+                      only(gf_encode=1))
+    check(torch.equal(gf.pack_u32(star, L), cw_p[lost_t]), "star_repair == lost rows")
+
+    w0 = (B // 2 - READ_WORDS // 2) // 2 * 2         # lane-aligned, mid-object
+    lanes = slice(w0 // 2, (w0 + READ_WORDS) // 2)
+    shards_p = gf.pack_u32(shards, L)
+    slices = gf.unpack_u32(shards_p[:, lanes].contiguous(), L)
+    read = first_call("degraded_read",
+                      lambda: repair.degraded_read(code, ids, slices, READ_BLOCKS),
+                      only(gf_encode=1))
+    check(torch.equal(gf.pack_u32(read, L),
+                      data_p[torch.tensor(READ_BLOCKS, device=dev)][:, lanes]),
+          "degraded_read == the object's window")
+    print(f"checks: classical parity == plain matvec and {len(starts)} host windows; "
+          f"encode_local == encode_mxu == pipelined codeword; both repairs == rows "
+          f"{lost}; degraded read == data[{READ_BLOCKS}, {w0}:{w0 + READ_WORDS}]")
+
+    helper_lanes = shards_p[torch.tensor([ids.index(h) for h in helpers], device=dev)]
+    D = code.decode_matrix(ids)[READ_BLOCKS]
+    return {
+        "gf_encode": [("classical parity", ccode.parity_matrix, data_p),
+                      ("encode_local", code.G, data_p),
+                      ("star_repair", R, helper_lanes),
+                      ("degraded_read", D, shards_p[:, lanes].contiguous())],
+        "gf_encode_mxu": [("encode_mxu", code.G, data)],
+        "repair": (R, helper_lanes),
+    }
+
+
+def phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches: dict,
+                 work: dict, errs: dict, dev) -> None:
+    """The slice's launches of each new kernel, and its repair ticks, through
+    the kernel and through its plain version: checked equal and timed."""
+    for what, M, x in launches["gf_encode"]:
+        x3 = x[None]
+        rows, Bp = M.shape[0], x.shape[-1]
+        planes = torch.from_numpy(gf.bitplane_table(M, L).astype(np.int32)).to(dev)
+        out = torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)
+        ms = median_ms(lambda: kernel.gf_encode(x3, planes, out, L, ops.pick_block(Bp)), 5)
+        plain = {}
+        plain_ms = median_ms(lambda: plain.update(y=ref.encode_packed_many_ref(M, x3, L)), 3)
+        check(torch.equal(out, plain["y"]), f"gf_encode == plain version ({what})")
+        errs["gf_encode"] = max(errs["gf_encode"], max_abs_err(out, plain["y"]))
+        add_work(work, "gf_encode", 1, ms, plain_ms, *encode_work(M, 1, Bp))
+        print(f"gf_encode replay ({what}, {rows}x{x.shape[0]}, Bp={Bp}): {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms")
+
+    for what, M, xw in launches["gf_encode_mxu"]:
+        rows, B = M.shape[0], xw.shape[-1]
+        lifted = torch.from_numpy(kernel.padded_bitlift(M, L)).to(dev)
+        out = torch.empty((rows, B), dtype=xw.dtype, device=dev)
+        ms = median_ms(lambda: kernel.gf_encode_mxu(xw, lifted, out, L), 5)
+        plain = {}
+        plain_ms = median_ms(lambda: plain.update(y=ref.bitlift_encode_ref(M, xw, L)), 3)
+        check(words_equal(out, plain["y"]), f"gf_encode_mxu == plain version ({what})")
+        check(torch.equal(gf.pack_u32(out, L), cw_p), "replayed bit-lift codeword")
+        errs["gf_encode_mxu"] = max(errs["gf_encode_mxu"], max_abs_err(out, plain["y"]))
+        add_work(work, "gf_encode_mxu", 1, ms, plain_ms, *mxu_work(M, B, xw.element_size()))
+        print(f"gf_encode_mxu replay ({what}, {rows}x{xw.shape[0]}, B={B}): {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms")
+
+    R, helper_lanes = launches["repair"]
+    h, Bp = helper_lanes.shape
+    rows, S = R.shape[0], Bp // NUM_CHUNKS
+    order = pipeline.position_nodes(h, reverse=True)
+    local = helper_lanes[torch.tensor(order, device=dev)][:, None]
+    bp = torch.from_numpy(chain.column_bitplanes(R, L)[order].astype(np.int32)).to(dev)
+    outs, timings = {}, {}
+
+    def rep_tick(tick, wi, wo, t, lo, count):
+        tick(wi, wo, local, outs[tick], bp, L, t, NUM_CHUNKS, lo, count)
+
+    for tick, reps in ((kernel.repair_tick, 5), (ref.repair_tick_ref, 3)):
+        outs[tick] = torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)
+        timings[tick] = median_ms(replay(h, tick, (h, 1, rows, S), dev, rep_tick), reps)
+    check(torch.equal(outs[kernel.repair_tick], outs[ref.repair_tick_ref]),
+          "repair_tick == plain version over the repair's ticks")
+    check(torch.equal(outs[kernel.repair_tick][0], cw_p[torch.tensor(lost, device=dev)]),
+          "replayed repair")
+    errs["repair_tick"] = max(errs["repair_tick"], max_abs_err(
+        outs[kernel.repair_tick], outs[ref.repair_tick_ref]))
+    repair_w = {"launches": pipeline.num_ticks(NUM_CHUNKS, h), "ms": timings[kernel.repair_tick],
+                "plain_ms": timings[ref.repair_tick_ref], "int8_ops": 0}
+    repair_w["bytes"], repair_w["ops"] = repair_tick_work(h, rows, Bp)
+    report_work("repair_tick", repair_w, "pipelined_repair")
+    add_work(work, "repair_tick", repair_w["launches"], repair_w["ms"],
+             repair_w["plain_ms"], repair_w["bytes"], repair_w["ops"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -231,7 +516,7 @@ def main() -> int:
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
 
     # -- phase 2: kernels vs plain versions, small ragged shapes -------------
-    errs = {"chain_tick": 0, "repair_tick": 0}
+    errs = dict.fromkeys(REPLACES, 0)
     phase_kernels(dev, seed, errs)
 
     # -- phase 3: the main path at full size ----------------------------------
@@ -267,17 +552,15 @@ def main() -> int:
 
     enc_ticks = pipeline.num_ticks(NUM_CHUNKS, N)
     dec_ticks = pipeline.num_ticks(NUM_CHUNKS, len(ids))
-    check(enc_counts == {"chain_tick": enc_ticks, "repair_tick": 0},
+    check(enc_counts == only(chain_tick=enc_ticks),
           f"encode launches {enc_counts}, want {enc_ticks} chain_tick")
-    check(counts == {"chain_tick": enc_ticks, "repair_tick": dec_ticks},
+    check(counts == only(chain_tick=enc_ticks, repair_tick=dec_ticks),
           f"decode launches {counts}, want {dec_ticks} repair_tick")
     check(tuple(cw.shape) == (N, B), f"codeword shape {tuple(cw.shape)}")
     check(torch.equal(gf.pack_u32(rec, L), data_p), "decoded object == data")
     check(torch.equal(cw_p, gf.gf_matvec_packed(code.G, data_p, L)),
           "codeword == plain packed matvec on the card")
-    chunk = B // NUM_CHUNKS
-    starts = [0, chunk - 32, 3 * chunk - 64, 5 * chunk - 2, B - 64,
-              int(rng.integers(0, B // 2 - 64)) * 2]
+    starts = window_starts(B, rng)
     for s in starts:                      # lane-aligned windows, some straddling chunks
         win = cw_p[:, s // 2:s // 2 + 32].cpu().numpy().view(np.uint16)
         want = gf.gf_matmul_np(code.G, data_np[:, s:s + 64], L)
@@ -336,7 +619,7 @@ def main() -> int:
     errs["repair_tick"] = max(errs["repair_tick"], max_abs_err(
         dec_outs[kernel.repair_tick], dec_outs[ref.repair_tick_ref]))
 
-    # Bounds over all of a run's ticks. Per active node and lane, chain_tick
+    # Work over all of a run's ticks. Per active node and lane, chain_tick
     # reads the wire and each replica slot and writes the codeword and the
     # wire; each slot with nonzero planes costs l masks (shift, and), an
     # xi multiply + xor, and a psi multiply + xor where psi is nonzero.
@@ -348,29 +631,41 @@ def main() -> int:
     enc_ops = sum(L * (4 + 2 * int(psi_nz[i, s]))
                   for i in range(N) for s in range(code.chain.max_blocks)
                   if valid[i, s]) * Bp
-    dec_bytes = n_alive * (2 * K + 1) * Bp * 4
-    dec_ops = n_alive * (2 * L + 2 * K * L) * Bp
-    rows = []
-    for name, tick, plain, nbytes, nops in (
-            ("chain_tick", kernel.chain_tick, ref.chain_tick_ref, enc_bytes, enc_ops),
-            ("repair_tick", kernel.repair_tick, ref.repair_tick_ref, dec_bytes, dec_ops)):
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / INT32_OPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": errs[name], "ms": timings[tick],
-            "plain_ms": timings[plain], "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            # no single PyTorch call computes a GF(2^l) multiply-accumulate
-            "library_ms": None,
-            "bytes": nbytes, "ops": nops,
-        })
-        print(f"{name}: {counts[name]} launches on the main path; over its ticks "
-              f"{timings[tick]:.3f} ms (plain {timings[plain]:.3f} ms), bound "
-              f"{max(bytes_ms, ops_ms):.3f} ms (bytes {bytes_ms:.3f}, ops {ops_ms:.3f})")
+    work = {name: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+                   "ops": 0, "int8_ops": 0} for name in REPLACES}
+    add_work(work, "chain_tick", counts["chain_tick"], timings[kernel.chain_tick],
+             timings[ref.chain_tick_ref], enc_bytes, enc_ops)
+    add_work(work, "repair_tick", counts["repair_tick"], timings[kernel.repair_tick],
+             timings[ref.repair_tick_ref], *repair_tick_work(n_alive, K, Bp))
     print(f"encode placement (gather + mask of the replica blocks): "
           f"{placement_ms:.3f} ms")
+    for name in ("chain_tick", "repair_tick"):
+        report_work(name, work[name], "main path")
+
+    # -- phase 5: static-coefficient kernels vs plain versions, small shapes --
+    phase_static_kernels(dev, seed, errs)
+
+    # -- phase 6: atomic encode, bit-lift encode, repair, degraded read -------
+    launches = phase_slice(code, data_np, data_p, data, cw_p, lost, ids, shards, dev)
+
+    # -- phase 7: the slice's launches, kernel vs plain version ---------------
+    phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches, work, errs, dev)
+
+    rows = []
+    for name, w in work.items():
+        bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = max(w["ops"] / INT32_OPS_PER_S, w["int8_ops"] / INT8_OPS_PER_S) * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": w["launches"],
+            "max_abs_err": errs[name], "ms": w["ms"], "plain_ms": w["plain_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "library_why": LIBRARY_WHY[name],
+            "bytes": w["bytes"], "ops": w["ops"], "int8_ops": w["int8_ops"],
+        })
+        report_work(name, w, "all paths")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Erasure-code API shared by code families (the part the chain data plane uses).
 
-The pipelined encode and decode in ``repro_torch.storage.chain`` need only a
-small surface from a code: its geometry ``(n, k, l)``, a generator matrix
-over GF(2^l) and a decode matrix for a survivor subset. :class:`ErasureCode`
+The pipelined encode, decode and repair in ``repro_torch.storage`` need
+only a small surface from a code: its geometry ``(n, k, l)``, a generator
+matrix over GF(2^l), a decode matrix for a survivor subset and a repair
+plan for lost rows. :class:`ErasureCode`
 pins that surface down; :class:`CodeSpec` — ``(family, n, k, l, seed)`` —
 carries a code's identity in a hashable, serializable form.
 
@@ -156,6 +157,53 @@ class ErasureCode:
     def max_tolerated_losses(self) -> int:
         """Largest f with EVERY f-node loss pattern still decodable."""
         return _max_losses_cached(self)
+
+    # -- repair ------------------------------------------------------------
+    def repair_plan(self, missing: Iterable[int],
+                    alive: Iterable[int]) -> tuple[list[int], np.ndarray]:
+        """Helpers and coefficients reconstructing lost codeword rows.
+
+        Returns ``(helpers, R)`` with ``R @ c[helpers] = c[missing]`` —
+        one GF inner product over the helper shards per lost row, no full
+        decode. Raises ValueError (before touching data) when survivors
+        are not decodable.
+        """
+        return matrix_repair_plan(self, missing, alive)
+
+    def repair_helpers(self, missing: Iterable[int],
+                       alive: Iterable[int]) -> list[int]:
+        """The survivor rows a repair of ``missing`` must read."""
+        return self.repair_plan(list(missing), list(alive))[0]
+
+    def repair_np(self, missing, ids, shards: np.ndarray) -> np.ndarray:
+        """Rebuild the lost shards from surviving shards (host oracle)."""
+        helpers, R = self.repair_plan(list(missing), list(ids))
+        ids = list(ids)
+        sel = np.asarray(shards)[[ids.index(h) for h in helpers]]
+        return gf.gf_matmul_np(R, sel, self.l)
+
+
+def matrix_repair_plan(code, missing: Iterable[int],
+                       alive: Iterable[int]) -> tuple[list[int], np.ndarray]:
+    """Generic generator-matrix repair plan (any positionwise code).
+
+    Picks a decodable k-subset H of the surviving rows (greedy independent
+    rows of G) and returns ``(helpers, R)`` with R = G_missing @ G_H^{-1}.
+    """
+    missing = list(missing)
+    alive = list(alive)
+    if set(missing) & set(alive):
+        raise ValueError(
+            f"rows {set(missing) & set(alive)} both missing and alive")
+    if not code.positionwise:
+        raise NotImplementedError(
+            f"{code.family} is sub-packetized; use repair_np")
+    G_alive = code.G[alive].astype(np.int64)
+    chosen = independent_rows(G_alive, code.k, code.l)  # ValueError if not
+    helpers = [alive[p] for p in chosen]
+    inv = gf.gf_inv_matrix_np(G_alive[chosen], code.l)  # (k, k)
+    R = gf.gf_matmul_np(code.G[missing], inv, code.l)   # (|missing|, k)
+    return helpers, R
 
 
 @functools.lru_cache(maxsize=4096)

@@ -1,11 +1,13 @@
 """Finite-field GF(2^l) arithmetic for erasure coding, l in {8, 16}.
 
-Two execution styles, bit-exact against each other:
+Three execution styles, bit-exact against each other:
 
 1. Host (numpy) table arithmetic — builds generator and decode matrices,
    runs Gaussian elimination and draws coefficients (Jerasure's
    log/antilog approach, as in the paper).
-2. Packed **bit-plane** arithmetic on torch tensors — a multiply by a
+2. The same table arithmetic on torch word tensors (``gf_mul``,
+   ``gf_matmul``) — the word-level reference on any device.
+3. Packed **bit-plane** arithmetic on torch tensors — a multiply by a
    coefficient ``c`` is ``xor_j bit_j(x) * (c * alpha^j)``, with 4 bytes
    (or 2 halfwords) packed per 32-bit lane. No gathers; pure
    shift/mask/mul/xor. The CUDA tick kernels in
@@ -152,6 +154,42 @@ def gf_inv_matrix_np(M: np.ndarray, l: int) -> np.ndarray:
             if r != c and aug[r, c] != 0:
                 aug[r] ^= gf_mul_np(aug[c], aug[r, c], l).astype(np.int64)
     return aug[:, k:].astype(WORD_DTYPE[l])
+
+
+# ---------------------------------------------------------------------------
+# torch table arithmetic (the plain word-level reference on a device)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _torch_tables(l: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    exp, log = gf_tables(l)
+    return (torch.from_numpy(exp).to(device), torch.from_numpy(log).to(device))
+
+
+def gf_mul(a: torch.Tensor, b: torch.Tensor, l: int) -> torch.Tensor:
+    """Elementwise GF(2^l) product of word tensors (broadcasts) -> words.
+
+    The table gather runs on int64 indices: torch's CUDA build has no
+    indexing kernel for uint16.
+    """
+    exp, log = _torch_tables(l, a.device)
+    ai = a.to(torch.int64)
+    bi = b.to(torch.int64)
+    prod = torch.where((ai == 0) | (bi == 0), 0, exp[log[ai] + log[bi]])
+    return prod.to(TORCH_WORD_DTYPE[l])
+
+
+def gf_matmul(A, B: torch.Tensor, l: int) -> torch.Tensor:
+    """A (n, k) coefficients (numpy or tensor) x B (k, ...) words -> (n, ...)."""
+    A = torch.as_tensor(np.asarray(A, dtype=np.int64), device=B.device)
+    n, k = A.shape
+    if B.shape[0] != k:
+        raise ValueError(f"gf_matmul: {k} coefficient columns but {B.shape[0]} rows")
+    out = torch.zeros((n,) + tuple(B.shape[1:]), dtype=torch.int64, device=B.device)
+    for j in range(k):
+        term = gf_mul(A[:, j].reshape((n,) + (1,) * (B.dim() - 1)), B[j][None], l)
+        out ^= term.to(torch.int64)
+    return out.to(TORCH_WORD_DTYPE[l])
 
 
 # ---------------------------------------------------------------------------

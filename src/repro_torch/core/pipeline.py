@@ -12,6 +12,12 @@ i of the buffer written at tick t - 1 — the row node i - 1 wrote there — and
 writes row i + 1 of the other buffer. Row 0 is never written, so the head
 of the chain reads zeros. One tick is one kernel launch over the active
 nodes only, so nodes outside ``active_nodes`` cost nothing.
+
+The schedule runs in one direction on the node axis. The reverse chain of
+repair (node idx plays position n-1-idx and the wire flows toward node 0,
+the replacement) is the same schedule over the node axis laid out in
+position order, ``position_nodes(n, reverse=True)``: the caller stacks its
+per-node operands in that order and runs the forward ticks.
 """
 from __future__ import annotations
 
@@ -38,6 +44,11 @@ def chain_perm(n: int, reverse: bool = False) -> list[tuple[int, int]]:
 def chain_pos(idx, n: int, reverse: bool = False):
     """Chain position played by node ``idx``."""
     return (n - 1 - idx) if reverse else idx
+
+
+def position_nodes(n: int, reverse: bool = False) -> list[int]:
+    """Node playing each chain position, position 0 first."""
+    return [chain_pos(p, n, reverse) for p in range(n)]   # chain_pos is its own inverse
 
 
 def active_nodes(t: int, n: int, num_chunks: int) -> tuple[int, int]:

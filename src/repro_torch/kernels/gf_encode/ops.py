@@ -1,4 +1,4 @@
-"""Public tick ops: the CUDA kernel for CUDA tensors, the plain version for CPU.
+"""Public kernel ops: the CUDA kernel for CUDA tensors, the plain version for CPU.
 
 ``chain_tick`` / ``repair_tick`` run one pipeline tick over the node axis
 (the form ``repro_torch.storage.chain`` drives). ``chain_step`` /
@@ -6,15 +6,25 @@
 public boundary — one object, or a batch with a leading object axis — and
 run as a one-node, one-chunk tick.
 
+``encode_packed`` / ``encode_words`` apply a static (rows, k) GF matrix to
+packed lanes or words through the bit-plane kernel; ``encode_mxu`` applies
+it through the bit-lift kernel on the int8 tensor cores.
+
 A tensor on the CPU takes the plain version in ``ref``; a tensor on a CUDA
 device launches the kernel, and a failed build or launch raises. Nothing
 falls back from one to the other.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from repro_torch.core import gf
 from repro_torch.kernels.gf_encode import kernel, ref
+
+DEFAULT_BLOCK = kernel.MAX_ENCODE_THREADS   # lanes per block of the bit-plane encode
 
 
 def _route(x: torch.Tensor, cuda_fn, cpu_fn):
@@ -22,7 +32,7 @@ def _route(x: torch.Tensor, cuda_fn, cpu_fn):
         return cuda_fn
     if x.device.type == "cpu":
         return cpu_fn
-    raise ValueError(f"no tick kernel for device {x.device}")
+    raise ValueError(f"no kernel for device {x.device}")
 
 
 def chain_tick(wire_in, wire_out, local, out, bp_psi, bp_xi, l: int, t: int,
@@ -99,3 +109,105 @@ def repair_step(x_in: torch.Tensor, local: torch.Tensor, bp: torch.Tensor,
     repair_tick(x_in.contiguous()[None], wire_out, local.contiguous().view(1, O, C),
                 out, bp.contiguous()[None], l, 0, 1, 0, 1)
     return out[0] if single else out
+
+
+def pick_block(Bp: int, preferred: int = DEFAULT_BLOCK) -> int:
+    """Lanes per block of the bit-plane encode for a packed length ``Bp``.
+
+    ``preferred`` for long buffers, else the smallest power of two covering
+    ``Bp``. The kernel masks its own ragged end, so the block only sizes
+    the launch; nothing is padded.
+    """
+    if Bp >= preferred:
+        return preferred
+    b = 1
+    while b < Bp:
+        b *= 2
+    return b
+
+
+def _matrix_key(M) -> tuple[tuple[int, ...], ...]:
+    return tuple(tuple(int(v) for v in row) for row in np.asarray(M))
+
+
+@functools.lru_cache(maxsize=256)
+def _planes(M_key, l: int, device: torch.device) -> torch.Tensor:
+    """The (rows, k, l) bit-plane table of M as int32 on ``device``, cached so
+    a warm call makes no host-to-device copy. Callers must not write to it."""
+    planes = gf.bitplane_table(np.asarray(M_key), l).astype(np.int32)
+    return torch.from_numpy(planes).to(device)
+
+
+@functools.lru_cache(maxsize=256)
+def _lifted(M_key, l: int, device: torch.device) -> torch.Tensor:
+    """``kernel.padded_bitlift`` of M on ``device``, cached like ``_planes``."""
+    return torch.from_numpy(kernel.padded_bitlift(np.asarray(M_key), l)).to(device)
+
+
+def _encode_packed_cuda(M: np.ndarray, x: torch.Tensor, l: int,
+                        block: int | None) -> torch.Tensor:
+    Bp = x.shape[-1]
+    out = torch.empty((x.shape[0], M.shape[0], Bp), dtype=torch.int32, device=x.device)
+    kernel.gf_encode(x.contiguous(), _planes(_matrix_key(M), l, x.device), out, l,
+                     pick_block(Bp, DEFAULT_BLOCK if block is None else block))
+    return out
+
+
+def encode_packed(M: np.ndarray, data_packed: torch.Tensor, l: int,
+                  block: int | None = None) -> torch.Tensor:
+    """Packed bit-plane encode: (k, Bp) int32 lanes -> (rows, Bp), or a
+    batch (O, k, Bp) -> (O, rows, Bp) in one launch. ``block`` is the
+    number of lanes per CUDA block, ``None`` for ``pick_block``'s choice."""
+    M = np.asarray(M)
+    if M.ndim != 2:
+        raise ValueError(f"encode_packed: coefficients {M.shape} must be (rows, k)")
+    single = data_packed.dim() == 2
+    x = data_packed[None] if single else data_packed
+    if x.dim() != 3 or x.shape[1] != M.shape[1]:
+        raise ValueError(f"encode_packed: data {tuple(data_packed.shape)} must be "
+                         f"(k={M.shape[1]}, Bp) or (O, k, Bp)")
+    cuda = functools.partial(_encode_packed_cuda, block=block)
+    out = _route(x, cuda, ref.encode_packed_many_ref)(M, x, l)
+    return out[0] if single else out
+
+
+def encode_words(M: np.ndarray, data: torch.Tensor, l: int,
+                 block: int | None = None) -> torch.Tensor:
+    """Word-level wrapper of ``encode_packed``: packs, encodes, unpacks.
+    (k, B) words or a batch (O, k, B); B must be whole int32 lanes."""
+    out = encode_packed(M, gf.pack_u32(data, l), l, block=block)
+    return gf.unpack_u32(out, l)
+
+
+def _encode_mxu_cuda(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
+    out = torch.empty((M.shape[0], data.shape[1]), dtype=data.dtype, device=data.device)
+    kernel.gf_encode_mxu(data.contiguous(), _lifted(_matrix_key(M), l, data.device),
+                         out, l)
+    return out
+
+
+def encode_mxu(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
+    """Bit-lifted encode on the int8 tensor cores: (k, B) words -> (rows, B)
+    words of ``gf.TORCH_WORD_DTYPE[l]``. Any B: the kernel masks the ragged
+    end of its last 128-word tile, and reads and writes the words in their
+    own type."""
+    M = np.asarray(M)
+    if M.ndim != 2 or data.dim() != 2 or data.shape[0] != M.shape[1]:
+        raise ValueError(f"encode_mxu: coefficients {M.shape} and data "
+                         f"{tuple(data.shape)} must be (rows, k) and (k, B)")
+    if data.dtype != gf.TORCH_WORD_DTYPE[l]:
+        raise ValueError(f"encode_mxu: words must be {gf.TORCH_WORD_DTYPE[l]} "
+                         f"for GF(2^{l}), got {data.dtype}")
+    return _route(data, _encode_mxu_cuda, ref.bitlift_encode_ref)(M, data, l)
+
+
+def _encode_mxu_any(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
+    """``encode_mxu`` for (k, B) or a batch (O, k, B): the kernel is strictly
+    (k, B), so a batch rides as one word-axis concatenation (one launch)
+    and is split back after."""
+    if data.dim() == 2:
+        return encode_mxu(M, data, l)
+    O, k, B = data.shape
+    flat = data.transpose(0, 1).reshape(k, O * B)
+    out = encode_mxu(M, flat, l)
+    return out.reshape(-1, O, B).transpose(0, 1)

@@ -1,7 +1,9 @@
-"""Plain PyTorch versions of the tick kernels, on packed int32 lanes.
+"""Plain PyTorch versions of the CUDA kernels in ``csrc/``.
 
-Each function states the same math as its CUDA kernel in ``csrc/gf_tick.cu``
-with shifts and masks on int32 tensors. The CPU path runs them, the tests
+Each function states the same math as its kernel: shifts and masks on
+packed int32 lanes for the ticks and the bit-plane encode, table
+arithmetic on words for ``encode_words_ref``, and a float32 product of 0/1
+bit-planes for the bit-lift. The CPU path runs them, the tests
 hold the JAX package against them, and ``chip_smoke.py`` holds the kernels
 against them on the card.
 """
@@ -11,6 +13,56 @@ import numpy as np
 import torch
 
 from repro_torch.core import gf
+from repro_torch.kernels.gf_encode import kernel
+
+# Columns of the bit-lift reference per product: the lifted bits of the
+# (16,11) GF(2^16) object would otherwise be 176 x 2^25 float32 values.
+BITLIFT_CHUNK = 1 << 20
+
+
+def encode_packed_ref(M: np.ndarray, data_packed: torch.Tensor, l: int) -> torch.Tensor:
+    """(rows, k) static coefficients x (k, Bp) packed int32 -> (rows, Bp)."""
+    return gf.gf_matvec_packed(M, data_packed, l)
+
+
+def encode_packed_many_ref(M: np.ndarray, data_packed: torch.Tensor,
+                           l: int) -> torch.Tensor:
+    """Per-object version of the batched encode: (O, k, Bp) -> (O, rows, Bp)."""
+    return torch.stack([gf.gf_matvec_packed(M, obj, l) for obj in data_packed])
+
+
+def encode_words_ref(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
+    """(rows, k) x (k, B) words -> (rows, B) words (table arithmetic)."""
+    return gf.gf_matmul(M, data, l)
+
+
+def bitlift_encode_ref(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
+    """Plain version of ``kernel.gf_encode_mxu``: (rows, k) x (k, B) words ->
+    (rows, B) words through the lifted F2 matrix.
+
+    The product is taken in float32 (torch has no int32 matmul on CUDA),
+    which is exact here: the operands are 0/1 and every sum is at most
+    k*l < 2^24. TF32 is turned off around the products, so exactness does
+    not rest on how it rounds. B is walked in ``BITLIFT_CHUNK`` columns.
+    """
+    rows, k = np.asarray(M).shape
+    lifted = torch.from_numpy(kernel.bitlift_matrix(M, l)).to(data.device,
+                                                              torch.float32)
+    x = data.to(torch.int32)
+    out = torch.empty((rows, x.shape[1]), dtype=torch.int32, device=data.device)
+    shifts = torch.arange(l, dtype=torch.int32, device=data.device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for c0 in range(0, x.shape[1], BITLIFT_CHUNK):
+            xs = x[:, c0:c0 + BITLIFT_CHUNK]
+            bits = (xs[:, None, :] >> shifts[None, :, None]) & 1    # (k, l, C)
+            y = lifted @ bits.reshape(k * l, -1).to(torch.float32)
+            y = (y.to(torch.int32) & 1).reshape(rows, l, -1)
+            out[:, c0:c0 + BITLIFT_CHUNK] = (y << shifts[None, :, None]).sum(1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out.to(gf.TORCH_WORD_DTYPE[l])
 
 
 def chain_step_ref(x_in: torch.Tensor, local: torch.Tensor, psi: np.ndarray,

@@ -1,0 +1,185 @@
+"""Pipelined repair & degraded reads (repair pipelining, Li et al.; PAPERS.md).
+
+Single-shard repair is conventionally a star: the replacement node pulls k
+whole shards through its one NIC. Repair pipelining slices it the way
+RapidRAID slices encoding: the k helpers form a chain, each adds its term of
+
+  c_lost = xor_h  R[:, h] * c_h          (R from repro_torch.core.fault_tolerance)
+
+to the partial reconstructions streaming past, and the replacement node at
+the chain's receiving end gets the finished shards.
+
+On one card:
+
+* ``pipelined_repair`` runs the helper chain backwards — position p is
+  played by helper h-1-p and the wire flows toward position 0, the
+  replacement (``pipeline.position_nodes(h, reverse=True)``) — as the
+  forward schedule over the helper axis laid out in position order: one
+  ``repair_tick`` launch per tick, the wire carrying (|missing|, S) partial
+  sums, so up to n-k lost shards are rebuilt in ONE pass;
+* ``star_repair`` applies R to the k helper shards in one ``gf_encode``
+  launch;
+* ``degraded_read`` serves a word range of requested object blocks from
+  the same range of the survivors' shards: the requested rows of the
+  decode matrix in one ``gf_encode`` launch, nothing else read.
+
+The repair plan (helpers + R, a host Gaussian elimination) and the decode
+matrix of a survivor set are cached, so warm calls do no host algebra.
+Entry points run on the card unless the caller passes ``device="cpu"``,
+where the ticks and the encode run the kernels' plain PyTorch versions.
+
+Not ported yet: ``pipelined_repair_many`` (multi-object), streaming in
+super-chunks (``superchunk_words=`` / ``sink=``), the tuned
+``num_chunks=None`` (the default is 8) and ``mesh=``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core import fault_tolerance, gf, pipeline
+from repro_torch.core.codes import ErasureCode
+from repro_torch.kernels.gf_encode import ops
+from repro_torch.storage.chain import (DEFAULT_NUM_CHUNKS, _check_chunking,
+                                       _planes, _resolve_device, _words,
+                                       column_bitplanes)
+
+
+@functools.lru_cache(maxsize=None)
+def _repair_plan_cached(code: ErasureCode, missing: tuple[int, ...],
+                        ids: tuple[int, ...]):
+    """Memoized ``code.repair_plan``: a pure function of (code, missing,
+    survivors) that costs a host Gaussian elimination. R is read-only."""
+    helpers, R = fault_tolerance.repair_plan(code, list(missing), list(ids))
+    R.setflags(write=False)
+    return tuple(helpers), R
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_matrix_cached(code: ErasureCode, ids: tuple[int, ...]) -> np.ndarray:
+    D = code.decode_matrix(list(ids))
+    D.setflags(write=False)
+    return D
+
+
+# ---------------------------------------------------------------------------
+# host oracle
+# ---------------------------------------------------------------------------
+
+
+def repair_np(code: ErasureCode, missing, ids, shards) -> np.ndarray:
+    """Reconstruct lost codeword rows on the host (numpy reference).
+
+    ids: surviving codeword rows; shards (len(ids), B) their blocks.
+    Returns (len(missing), B) — bit-exact rows of ``encode_np``'s output.
+    Raises ValueError when the survivors are not decodable.
+    """
+    ids = list(ids)
+    shards = np.asarray(shards)
+    if not code.positionwise:
+        return code.repair_np(list(missing), ids, shards)
+    helpers, R = _repair_plan_cached(code, tuple(missing), tuple(ids))
+    rows = [ids.index(h) for h in helpers]
+    return gf.gf_matmul_np(R, shards[rows], code.l)
+
+
+# ---------------------------------------------------------------------------
+# device paths
+# ---------------------------------------------------------------------------
+
+
+def _helper_lanes(code: ErasureCode, ids, shards, missing, what: str, device,
+                  num_chunks: int, reverse: bool) -> tuple[np.ndarray, torch.Tensor]:
+    """(R, the helpers' packed shards), the helpers stacked by chain position
+    (``pipeline.position_nodes(h, reverse)``); R's columns stay in the
+    plan's helper order."""
+    ids = [int(i) for i in ids]
+    if not code.positionwise:
+        raise ValueError(f"{what}: {code.family} shards are sub-packetized — "
+                         f"use code.repair_np")
+    shards = _words(shards, code.l, len(ids), what, device)
+    _check_chunking(shards.shape[1], code.l, num_chunks, what)
+    helpers, R = _repair_plan_cached(code, tuple(int(m) for m in missing),
+                                     tuple(ids))
+    rows = [ids.index(helpers[p]) for p in pipeline.position_nodes(len(helpers), reverse)]
+    packed = gf.pack_u32(shards, code.l)
+    if rows != list(range(len(ids))):   # select through the int32 lanes
+        packed = packed[torch.tensor(rows, dtype=torch.int64, device=device)]
+    return R, packed
+
+
+def pipelined_repair(code: ErasureCode, ids, shards, missing,
+                     num_chunks: int = DEFAULT_NUM_CHUNKS,
+                     device=None) -> torch.Tensor:
+    """Repair <= n-k lost shards by streaming k survivors through a chain.
+
+    ids: surviving codeword rows; shards (len(ids), B) words (numpy or a
+    tensor). The k chosen helpers form a reverse chain toward the
+    replacement node; each tick is one ``repair_tick`` launch over the
+    active helpers, and the replacement ends up with the repaired
+    (|missing|, B) words, returned on ``device``. Raises ValueError if the
+    survivors are not decodable.
+    """
+    dev = _resolve_device(device)
+    l = code.l
+    R, local = _helper_lanes(code, ids, shards, missing, "pipelined_repair", dev,
+                             num_chunks, reverse=True)
+    h, Bp = local.shape
+    order = pipeline.position_nodes(h, reverse=True)
+    bp = _planes(column_bitplanes(R, l)[order], dev)     # (h, rows, l), by position
+    rows = R.shape[0]
+    local = local[:, None]                               # (h, 1, Bp)
+    out = torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)  # every chunk written once
+
+    def step(wire_in, wire_out, t, lo, count):
+        ops.repair_tick(wire_in, wire_out, local, out, bp, l, t, num_chunks,
+                        lo, count)
+
+    pipeline.software_pipeline(step, h, num_chunks, (h, 1, rows, Bp // num_chunks),
+                               device=dev)
+    return gf.unpack_u32(out[0], l)
+
+
+def star_repair(code: ErasureCode, ids, shards, missing, device=None) -> torch.Tensor:
+    """Star repair: the replacement node gathers k whole helper shards and
+    reconstructs locally, one ``gf_encode`` launch of R over them."""
+    dev = _resolve_device(device)
+    R, helper_lanes = _helper_lanes(code, ids, shards, missing, "star_repair", dev,
+                                    1, reverse=False)
+    return gf.unpack_u32(ops.encode_packed(R, helper_lanes, code.l), code.l)
+
+
+# ---------------------------------------------------------------------------
+# degraded reads: decode only the requested slice
+# ---------------------------------------------------------------------------
+
+
+def degraded_read_np(code: ErasureCode, ids, shard_slices,
+                     block_ids) -> np.ndarray:
+    """Serve object blocks from coded shards WITHOUT full-object decode.
+
+    ids: surviving codeword rows; shard_slices (len(ids), W) the SAME word
+    range of every surviving shard (only the requested slice is ever read);
+    block_ids: which original blocks the caller wants. Returns
+    (len(block_ids), W) — o_j[w0:w1] = xor_h D[j, h] * c_h[w0:w1], since
+    decode is position-wise over words.
+    """
+    D = code.decode_matrix(list(ids))
+    return gf.gf_matmul_np(D[list(block_ids)], np.asarray(shard_slices),
+                           code.l)
+
+
+def degraded_read(code: ErasureCode, ids, shard_slices, block_ids,
+                  device=None) -> torch.Tensor:
+    """Kernel path of ``degraded_read_np``: one ``gf_encode`` launch applies
+    the requested rows of the decode matrix to the packed slices. Returns
+    (len(block_ids), W) words on ``device``."""
+    dev = _resolve_device(device)
+    ids = tuple(int(i) for i in ids)
+    slices = _words(shard_slices, code.l, len(ids), "degraded_read", dev)
+    _check_chunking(slices.shape[1], code.l, 1, "degraded_read")
+    D = _decode_matrix_cached(code, ids)[list(block_ids)]
+    out = ops.encode_packed(D, gf.pack_u32(slices, code.l), code.l)
+    return gf.unpack_u32(out, code.l)
