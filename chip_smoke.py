@@ -22,9 +22,11 @@ last line:
    must equal the data.
 4. Replay the main path's ticks through each kernel and through its plain
    version, check they agree, and time both.
-5. Hold the static-coefficient kernels (bit-plane ``gf_encode`` and bit-lift
-   ``gf_encode_mxu``) bit-exact against their plain versions on the card at
-   small, ragged shapes; print each kernel's median time there.
+5. Hold the static-coefficient kernels (bit-plane ``gf_encode``, built per
+   matrix at its first use, and bit-lift ``gf_encode_mxu``) bit-exact
+   against their plain versions on the card at small, ragged shapes,
+   including matrices past the size limits of their first versions; print
+   each kernel's median time there.
 6. The slice of the paper's other half on the same object: the atomic
    classical encode (a (16,11) Cauchy Reed-Solomon code, the paper's CEC
    baseline), the single-node RapidRAID encode (``atomic.encode_local``),
@@ -33,7 +35,9 @@ last line:
    chain of repair ticks, and ``repair.star_repair``) and a degraded read of
    3 object blocks over a 2^19-word window. Each entry point runs once with
    the counters set to 0 just before and read just after, and its result is
-   checked; then wall time of 5 repeats and peak device bytes.
+   checked; then wall time of 5 repeats and peak device bytes. Then each
+   per-matrix ``gf_encode`` build's time and ptxas report, and the
+   bit-lift's shared memory per block.
 7. Replay each new kernel's launches of phase 6, and the repair ticks,
    against the plain versions and time both; print one JSON line with every
    kernel's numbers over all of the run's launches, then the device line.
@@ -74,6 +78,8 @@ NUM_CHUNKS = 8
 LOST = 5
 READ_BLOCKS = [0, 5, 10]
 READ_WORDS = 1 << 19
+PAST_CAPS_MXU = [(17, 11), (2, 17)]
+PAST_CAPS_PACKED = (12, 64)
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -276,12 +282,19 @@ def repair_tick_work(h: int, rows: int, Bp: int) -> tuple[int, int]:
 
 def encode_work(M: np.ndarray, O: int, Bp: int) -> tuple[int, int]:
     """(bytes, int32 ops) of one gf_encode launch: k lanes in and rows out per
-    lane; a mask (shift, and) per (input row, bit) that some row uses and a
-    multiply + xor per nonzero plane term — what this matrix needs."""
+    lane; the fewest operations the function needs with M's coefficients as
+    constants: a mask per (input row, bit) that some row uses (an and, and a
+    shift for bits above 0), a multiply per distinct (input row, bit, plane
+    constant) other than 1 (rows that share a constant share the product,
+    and m * 1 is m), and per row one 3-input xor per two of its terms."""
     planes = gf.bitplane_table(M, L)
     rows, k = M.shape
-    masks = int(np.any(planes != 0, axis=0).sum())
-    return O * (k + rows) * Bp * 4, O * Bp * (2 * masks + 2 * int(np.count_nonzero(planes)))
+    used = np.any(planes != 0, axis=0)                     # (k, L)
+    masks = 2 * int(used.sum()) - int(used[:, 0].sum())
+    products = {(j, b, int(planes[r, j, b])) for r, j, b in zip(*np.nonzero(planes > 1))}
+    terms = np.count_nonzero(planes, axis=(1, 2))          # per row
+    xors = int(((terms + 1) // 2).sum())
+    return O * (k + rows) * Bp * 4, O * Bp * (masks + len(products) + xors)
 
 
 def mxu_work(M: np.ndarray, B: int, itemsize: int) -> tuple[int, int, int]:
@@ -324,16 +337,60 @@ def phase_static_kernels(dev, seed: int, errs: dict) -> None:
                                                f"O={O} B={B}")
                 errs["gf_encode_mxu"] = max(errs["gf_encode_mxu"], max_abs_err(gotw, wantw))
         x = rand_i32(gen, (1, k, 499), dev)
-        planes = torch.from_numpy(gf.bitplane_table(M, l).astype(np.int32)).to(dev)
         out = torch.empty((1, rows, 499), dtype=torch.int32, device=dev)
-        enc_ms = median_ms(lambda: kernel.gf_encode(x, planes, out, l, ops.pick_block(499)), 20)
+        enc_ms = median_ms(lambda: kernel.gf_encode(x, M, out, l), 20)
         xw = rand_words(rng, (k, 1002), l, dev)
-        lifted = torch.from_numpy(kernel.padded_bitlift(M, l)).to(dev)
+        operand = torch.from_numpy(kernel.mxu_operand(M, l)).to(dev)
         outw = torch.empty((rows, 1002), dtype=xw.dtype, device=dev)
-        mxu_ms = median_ms(lambda: kernel.gf_encode_mxu(xw, lifted, outw, l), 20)
+        mxu_ms = median_ms(lambda: kernel.gf_encode_mxu(xw, operand, outw, l), 20)
         print(f"gf_encode l={l:2d} ({rows:2d},{k:2d}) O=1,3 Bp=499: bit-exact, median "
               f"{enc_ms:.4f} ms; gf_encode_mxu B=998,1000,1002: bit-exact, median "
               f"{mxu_ms:.4f} ms at B=1002")
+    # matrices past the limits of the PR 12 kernels: lifted past 256 x 256
+    # bits (bit-lift), planes past 48 KB (bit-plane)
+    for rows, k in PAST_CAPS_MXU:
+        M = rng.integers(0, 1 << 16, size=(rows, k))
+        for B in (998, 1000, 1002):
+            xw = rand_words(rng, (k, B), 16, dev)
+            gotw, wantw = ops.encode_mxu(M, xw, 16), ref.bitlift_encode_ref(M, xw, 16)
+            torch.cuda.synchronize()
+            check(words_equal(gotw, wantw), f"gf_encode_mxu past the old cap ({rows},{k}) B={B}")
+            errs["gf_encode_mxu"] = max(errs["gf_encode_mxu"], max_abs_err(gotw, wantw))
+    rows, k = PAST_CAPS_PACKED
+    M = rng.integers(0, 1 << 16, size=(rows, k))
+    for Bp in (499, 500):
+        x = rand_i32(gen, (2, k, Bp), dev)
+        got, want = ops.encode_packed(M, x, 16), ref.encode_packed_many_ref(M, x, 16)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"gf_encode past the old cap ({rows},{k}) Bp={Bp}")
+        errs["gf_encode"] = max(errs["gf_encode"], max_abs_err(got, want))
+    print(f"past the old caps: gf_encode_mxu {PAST_CAPS_MXU} at l=16, B=998,1000,1002, and "
+          f"gf_encode {PAST_CAPS_PACKED} at l=16, O=2, Bp=499,500: bit-exact")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'function: registers, spills' for each entry function in a -Xptxas -v log."""
+    out, fn, spills = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif "spill stores" in line:
+            spills = line.split(":")[-1].strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{fn}: {line.split(':', 1)[-1].strip()}; {spills}")
+            spills = ""
+    return out
+
+
+def print_compiles() -> None:
+    """Each specialised gf_encode kernel built or loaded so far: its matrix,
+    route, time and ptxas report."""
+    for c in kernel.compile_log:
+        took = (f"compiled in {c['compile_s']:.3f} s" if "compile_s" in c
+                else "loaded from the disk cache")
+        print(f"gf_encode kernel ({c['rows']},{c['k']}) l={c['l']} route={c['route']}: "
+              f"{took}, first use {c['first_use_s']:.3f} s; "
+              f"ptxas {' | '.join(ptxas_summary(c['log'])) or 'no report'}")
 
 
 def first_call(name: str, fn, want_counts: dict):
@@ -439,9 +496,8 @@ def phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches: dict,
     for what, M, x in launches["gf_encode"]:
         x3 = x[None]
         rows, Bp = M.shape[0], x.shape[-1]
-        planes = torch.from_numpy(gf.bitplane_table(M, L).astype(np.int32)).to(dev)
         out = torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)
-        ms = median_ms(lambda: kernel.gf_encode(x3, planes, out, L, ops.pick_block(Bp)), 5)
+        ms = median_ms(lambda: kernel.gf_encode(x3, M, out, L), 5)
         plain = {}
         plain_ms = median_ms(lambda: plain.update(y=ref.encode_packed_many_ref(M, x3, L)), 3)
         check(torch.equal(out, plain["y"]), f"gf_encode == plain version ({what})")
@@ -452,9 +508,9 @@ def phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches: dict,
 
     for what, M, xw in launches["gf_encode_mxu"]:
         rows, B = M.shape[0], xw.shape[-1]
-        lifted = torch.from_numpy(kernel.padded_bitlift(M, L)).to(dev)
+        operand = torch.from_numpy(kernel.mxu_operand(M, L)).to(dev)
         out = torch.empty((rows, B), dtype=xw.dtype, device=dev)
-        ms = median_ms(lambda: kernel.gf_encode_mxu(xw, lifted, out, L), 5)
+        ms = median_ms(lambda: kernel.gf_encode_mxu(xw, operand, out, L), 5)
         plain = {}
         plain_ms = median_ms(lambda: plain.update(y=ref.bitlift_encode_ref(M, xw, L)), 3)
         check(words_equal(out, plain["y"]), f"gf_encode_mxu == plain version ({what})")
@@ -511,8 +567,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"build: {build_s:.2f} s ({kernel.library_path().name})")
-    print("ptxas:", " | ".join(line.strip() for line in kernel.build_log().splitlines()
-                              if "registers" in line or "spill" in line))
+    print("ptxas:", " | ".join(ptxas_summary(kernel.build_log())))
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
 
     # -- phase 2: kernels vs plain versions, small ragged shapes -------------
@@ -647,6 +702,11 @@ def main() -> int:
 
     # -- phase 6: atomic encode, bit-lift encode, repair, degraded read -------
     launches = phase_slice(code, data_np, data_p, data, cw_p, lost, ids, shards, dev)
+
+    print_compiles()
+    print(f"gf_encode_mxu at ({N},{K}) over GF(2^{L}): tiling (NT, n-tiles, K_pad) "
+          f"{kernel.mxu_tiling(N, K, L)}, {kernel.mxu_smem_bytes(N, K, L)} bytes of "
+          f"dynamic shared memory per block")
 
     # -- phase 7: the slice's launches, kernel vs plain version ---------------
     phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches, work, errs, dev)

@@ -1,22 +1,30 @@
 """Build, bind and launch the hand-written CUDA kernels in ``csrc/``.
 
 ``gf_tick.cu`` holds the pipeline ticks (``chain_tick``, ``repair_tick``),
-``gf_encode.cu`` the static-coefficient bit-plane encode (``gf_encode``) and
 ``gf_mxu.cu`` the bit-lifted encode on the int8 tensor cores
-(``gf_encode_mxu``).
+(``gf_encode_mxu``), ``gf_module.cu`` the driver-API loader of the
+per-matrix kernels, and ``gf_encode.cu`` the template of the
+static-coefficient bit-plane encode (``gf_encode``).
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``. The build runs at first
-use, from the sources in this package only, into ``build/repro_torch/`` at
-the root of the checkout; the library's file name carries a hash of the
-sources and flags, so a stale build is never loaded.
+The first three are compiled with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes``. The build runs
+at first use, from the sources in this package only, into
+``build/repro_torch/`` at the root of the checkout; the library's file name
+carries a hash of the sources and flags, so a stale build is never loaded.
+
+``gf_encode`` is built per (matrix, field), as the TPU kernel bakes its
+matrix into its body: ``encode_source`` writes the matrix's terms into the
+template, the toolkit's NVRTC compiles it at the first call with that
+matrix, and the cubin is cached in memory and under
+``build/repro_torch/gf_encode/`` by a hash of the source and flags. ``gf_encode.compiles`` counts the builds, ``compile_log`` keeps
+each one's time and compiler output.
 
 Each launch wrapper checks device, dtype (int32 lanes, or words and int8
-for the bit-lift), shape and contiguity of every tensor and raises on anything else, launches on PyTorch's current
-stream, allocates nothing, and raises if the launch reports an error. Each
-keeps a plain-integer ``launches`` counter that it bumps where it launches
-its kernel, and nowhere else. Outputs are written in place into the
-caller's buffers.
+for the bit-lift), shape and contiguity of every tensor and raises on
+anything else, launches on PyTorch's current stream, allocates nothing, and
+raises if the launch reports an error. Each keeps a plain-integer
+``launches`` counter that it bumps where it launches its kernel, and
+nowhere else. Outputs are written in place into the caller's buffers.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -34,15 +43,15 @@ import torch
 from repro_torch.core import gf
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "gf_tick.cu", CSRC / "gf_encode.cu", CSRC / "gf_mxu.cu")
+SOURCES = (CSRC / "gf_tick.cu", CSRC / "gf_mxu.cu", CSRC / "gf_module.cu")
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-lcuda",)   # the driver API: TMA descriptors, per-matrix modules
 SUPPORTED_L = (8, 16)
 MAX_B = (1, 2)
 _MAX_GRID_YZ = 65535
 _MAX_STATIC_SMEM = 48 * 1024
-MAX_ENCODE_THREADS = 512
 
 _lib: ctypes.CDLL | None = None
 
@@ -59,7 +68,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the build for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgf_tick-{h.hexdigest()[:16]}.so"
@@ -75,7 +84,7 @@ def load_library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES), *LINK_FLAGS]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode:
             os.unlink(tmp)
@@ -90,10 +99,14 @@ def load_library() -> ctypes.CDLL:
     lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                    i64, i64, i32, i32, i32, i32, vp]
     lib.gf_repair_tick.restype = i32
-    lib.gf_encode.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, vp]
-    lib.gf_encode.restype = i32
-    lib.gf_encode_mxu.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, vp]
+    lib.gf_encode_mxu.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
     lib.gf_encode_mxu.restype = i32
+    lib.gf_encode_mxu_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.gf_encode_mxu_smem_bytes.restype = i64
+    lib.gf_module_load.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(vp)]
+    lib.gf_module_load.restype = i32
+    lib.gf_module_launch_encode.argtypes = [vp, vp, vp, i64, i32, i64, i32, vp]
+    lib.gf_module_launch_encode.restype = i32
     _lib = lib
     return lib
 
@@ -243,48 +256,227 @@ def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
 repair_tick.launches = 0
 
 
-def gf_encode(data: torch.Tensor, planes: torch.Tensor, out: torch.Tensor,
-              l: int, threads: int) -> None:
+# ---------------------------------------------------------------------------
+# gf_encode: one kernel per (matrix, field), compiled at first use
+# ---------------------------------------------------------------------------
+
+ENCODE_TEMPLATE = CSRC / "gf_encode.cu"
+ENCODE_DIR = BUILD_DIR / "gf_encode"
+ENCODE_ROW_GROUP = 16      # rows whose accumulators share one pass over the inputs
+ENCODE_THREADS = 256
+ENCODE_MAX_THREADS = 256   # the template's __launch_bounds__
+NVRTC_FLAGS = ("--gpu-architecture=sm_90a", "--std=c++17", "--ptxas-options=-v")
+
+_encode_fns: dict = {}                # (M bytes, shape, l, device index) -> function
+compile_log: list[dict] = []          # one entry per matrix kernel built or loaded in this process
+
+
+def encode_source(M, l: int, template: str | None = None) -> str:
+    """The CUDA source of the ``gf_encode`` kernel specialised to M over GF(2^l).
+
+    Every nonzero plane ``M[r, j] * alpha^b`` (``gf.bitplane_table``) is one
+    term: ``T2`` folds two terms of a row, ``T1`` takes one. Masks are built
+    only for the (input row, bit) pairs some row of the group uses, two at a
+    time; rows go in groups of ``ENCODE_ROW_GROUP``. Each used input row is
+    one case of a switch in a loop that the compiler unrolls; the case loads
+    the next input row before its terms. Written so, the blocks stay in
+    order instead of every load being hoisted to the top: on the card the
+    (16,11) generator's kernel took 48 registers and 1.103 ms this way,
+    against 74 registers and 1.283 ms written as one straight block, and
+    the (12, 64) one built in 6.3 s without spills instead of 10.4 s with
+    them (``chip_smoke.py``, PERF.md).
+    """
+    M = np.asarray(M)
+    if M.ndim != 2 or l not in SUPPORTED_L:
+        raise ValueError(f"encode_source: bad matrix {M.shape} or l={l}")
+    planes = gf.bitplane_table(M, l)
+    rows, k = M.shape
+    defines = "\n".join((f"#define GF_L {l}", f"#define GF_ROWS {rows}", f"#define GF_K {k}",
+                         f"#define GF_LSB 0x{gf.LSB_MASK[l]:08x}u"))
+    body = []
+    for r0 in range(0, rows, ENCODE_ROW_GROUP):
+        group = range(r0, min(r0 + ENCODE_ROW_GROUP, rows))
+        inputs = [j for j in range(k) if planes[group.start:group.stop, j].any()]
+        body.append("  {")
+        body += [f"    u32 a{r} = 0;" for r in group]
+        if inputs:
+            body.append(f"    u32 nx;\n    LOAD(nx, {inputs[0]})")
+            body.append(f"#pragma unroll\n    for (int s = 0; s < {len(inputs)}; ++s) {{")
+            body.append("      const u32 v = nx;\n      switch (s) {")
+        for s, j in enumerate(inputs):
+            body.append(f"        case {s}: {{")
+            if s + 1 < len(inputs):
+                body.append(f"          LOAD(nx, {inputs[s + 1]})")
+            used = [b for b in range(l) if planes[group.start:group.stop, j, b].any()]
+            for p in range(0, len(used), 2):
+                pair = used[p:p + 2]
+                for b in pair:
+                    body.append(f"          MASK(m{j}_{b}, {b})")
+                for r in group:
+                    terms = [f"m{j}_{b}, 0x{int(planes[r, j, b]):x}u" for b in pair
+                             if planes[r, j, b]]
+                    if terms:
+                        body.append(f"          T{len(terms)}(a{r}, {', '.join(terms)})")
+            body.append("        } break;")
+        if inputs:
+            body.append("      }\n    }")
+        body += [f"    STORE({r}, a{r})" for r in group]
+        body.append("  }")
+    src = ENCODE_TEMPLATE.read_text() if template is None else template
+    return src.replace("@DEFINES@", defines).replace("@BODY@", "\n".join(body))
+
+
+def encode_key(M, l: int, template: str | None = None,
+               flags: tuple[str, ...] = NVRTC_FLAGS) -> str:
+    """Cache key of a specialised kernel: a hash of its source (M, l, the
+    template) and the compiler flags."""
+    return _source_key(encode_source(M, l, template), flags)
+
+
+def _source_key(src: str, flags: tuple[str, ...]) -> str:
+    h = hashlib.sha256(src.encode())
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:20]
+
+
+def _nvrtc() -> ctypes.CDLL:
+    """The CUDA toolkit's NVRTC library (beside the nvcc that builds the rest)."""
+    dirs = [Path(os.environ[v]) / "lib64" for v in ("CUDA_HOME", "CUDA_PATH") if v in os.environ]
+    try:
+        dirs.append(Path(_nvcc()).resolve().parents[1] / "lib64")
+    except RuntimeError:
+        pass
+    dirs.append(Path("/usr/local/cuda/lib64"))
+    for d in dirs:
+        for cand in sorted(d.glob("libnvrtc.so*")):
+            if "builtins" not in cand.name:
+                try:
+                    return ctypes.CDLL(str(cand))
+                except OSError:
+                    continue
+    raise RuntimeError(f"libnvrtc not found in {[str(d) for d in dirs]}: the per-matrix "
+                       f"gf_encode kernels cannot be built")
+
+
+def _nvrtc_compile(nvrtc: ctypes.CDLL, src: str) -> tuple[bytes, str]:
+    prog = ctypes.c_void_p()
+    rc = nvrtc.nvrtcCreateProgram(ctypes.byref(prog), src.encode(), b"gf_encode.cu", 0,
+                                  None, None)
+    if rc:
+        raise RuntimeError(f"gf_encode: nvrtcCreateProgram failed ({rc})")
+    try:
+        opts = (ctypes.c_char_p * len(NVRTC_FLAGS))(*(f.encode() for f in NVRTC_FLAGS))
+        rc = nvrtc.nvrtcCompileProgram(prog, len(NVRTC_FLAGS), opts)
+        size = ctypes.c_size_t()
+        nvrtc.nvrtcGetProgramLogSize(prog, ctypes.byref(size))
+        buf = ctypes.create_string_buffer(size.value)
+        nvrtc.nvrtcGetProgramLog(prog, buf)
+        log = buf.value.decode(errors="replace")
+        if rc:
+            raise RuntimeError(f"gf_encode: NVRTC failed ({rc}):\n{log}")
+        nvrtc.nvrtcGetCUBINSize(prog, ctypes.byref(size))
+        cubin = ctypes.create_string_buffer(size.value)
+        rc = nvrtc.nvrtcGetCUBIN(prog, cubin)
+        if rc:
+            raise RuntimeError(f"gf_encode: nvrtcGetCUBIN failed ({rc})")
+        return cubin.raw, log
+    finally:
+        nvrtc.nvrtcDestroyProgram(ctypes.byref(prog))
+
+
+def _encode_cubin(M: np.ndarray, l: int) -> tuple[bytes, dict]:
+    """The cubin of M's kernel: from the disk cache, else compiled with NVRTC
+    and cached."""
+    src = encode_source(M, l)
+    key = _source_key(src, NVRTC_FLAGS)
+    path = ENCODE_DIR / f"gf_encode-{key}.cubin"
+    info = {"key": key, "rows": M.shape[0], "k": M.shape[1], "l": l}
+    if path.exists():
+        log = path.with_suffix(".log")
+        return path.read_bytes(), {**info, "route": "disk",
+                                   "log": log.read_text() if log.exists() else ""}
+    ENCODE_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    cubin, log = _nvrtc_compile(_nvrtc(), src)
+    seconds = time.perf_counter() - t0
+    gf_encode.compiles += 1
+    path.with_suffix(".log").write_text(log)
+    fd, tmp = tempfile.mkstemp(suffix=".cubin", dir=ENCODE_DIR)
+    with os.fdopen(fd, "wb") as f:
+        f.write(cubin)
+    os.replace(tmp, path)  # atomic, as for the library
+    return cubin, {**info, "route": "nvrtc", "compile_s": seconds, "log": log}
+
+
+def _encode_fn(M: np.ndarray, l: int, device: torch.device) -> int:
+    M = np.ascontiguousarray(M, dtype=np.int64)
+    mkey = (M.tobytes(), M.shape, l, device.index)
+    fn = _encode_fns.get(mkey)
+    if fn is not None:
+        return fn
+    t0 = time.perf_counter()
+    cubin, info = _encode_cubin(M, l)
+    lib = load_library()
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(device):
+        rc = lib.gf_module_load(cubin, b"gf_encode_kernel", ctypes.byref(handle))
+    if rc:
+        raise RuntimeError(f"gf_encode: loading the kernel of a {M.shape} matrix failed "
+                           f"with CUDA driver error {rc}")
+    info["first_use_s"] = time.perf_counter() - t0
+    compile_log.append(info)
+    _encode_fns[mkey] = handle.value
+    return handle.value
+
+
+def gf_encode(data: torch.Tensor, M, out: torch.Tensor, l: int,
+              threads: int = ENCODE_THREADS) -> None:
     """Static-coefficient encode on the card (replaces ``gf_encode_kernel``).
 
-    Shapes: ``data`` (O, k, Bp) packed lanes, ``planes`` (rows, k, l) with
-    ``planes[r, j, b] = M[r, j] * alpha^b`` (``gf.bitplane_table``), ``out``
-    (O, rows, Bp). ``threads`` (1..512) lanes per block; the kernel masks the
-    ragged end of Bp itself.
+    Shapes: ``data`` (O, k, Bp) packed lanes, ``M`` the (rows, k) GF(2^l)
+    coefficients (host integers), ``out`` (O, rows, Bp). The first call
+    with a matrix builds its kernel (``encode_source``; cached in memory
+    and under ``build/repro_torch/gf_encode/``); ``threads`` (32..256, a
+    multiple of 32) per block, one lane a thread.
     """
-    device = _check_tensors("gf_encode", data=data, planes=planes, out=out)
+    device = _check_tensors("gf_encode", data=data, out=out)
     if l not in SUPPORTED_L:
         raise ValueError(f"gf_encode: unsupported field GF(2^{l})")
-    if data.dim() != 3 or planes.dim() != 3:
-        raise ValueError(f"gf_encode: data {tuple(data.shape)} / planes "
-                         f"{tuple(planes.shape)} must be (O, k, Bp) / (rows, k, l)")
-    O, k, Bp = data.shape
-    rows = planes.shape[0]
-    if rows < 1 or k < 1 or planes.shape != (rows, k, l) or out.shape != (O, rows, Bp):
-        raise ValueError(f"gf_encode: planes {tuple(planes.shape)} / out "
-                         f"{tuple(out.shape)} do not match data {tuple(data.shape)}")
-    if (rows + 1) * k * l * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(f"gf_encode: a ({rows}, {k}) matrix's planes and flags "
-                         f"({(rows + 1) * k * l * 4} bytes) exceed the "
-                         f"{_MAX_STATIC_SMEM} bytes of shared memory the kernel uses")
-    if not 1 <= threads <= MAX_ENCODE_THREADS:
-        raise ValueError(f"gf_encode: {threads} threads per block not in "
-                         f"[1, {MAX_ENCODE_THREADS}]")
+    M = np.asarray(M)
+    if M.ndim != 2 or M.size == 0 or not np.issubdtype(M.dtype, np.integer):
+        raise ValueError(f"gf_encode: coefficients {M.shape} must be a (rows, k) integer matrix")
+    if M.min() < 0 or M.max() >= 1 << l:
+        raise ValueError(f"gf_encode: coefficients outside GF(2^{l})")
+    rows, k = M.shape
+    if data.dim() != 3 or data.shape[1] != k or out.shape != (data.shape[0], rows, data.shape[2]):
+        raise ValueError(f"gf_encode: data {tuple(data.shape)} / out {tuple(out.shape)} do not "
+                         f"match a ({rows}, {k}) matrix")
+    O, _, Bp = data.shape
+    if threads % 32 or not 32 <= threads <= ENCODE_MAX_THREADS:
+        raise ValueError(f"gf_encode: {threads} threads per block not a multiple of 32 "
+                         f"in [32, {ENCODE_MAX_THREADS}]")
     if O < 1 or O > _MAX_GRID_YZ:
         raise ValueError(f"gf_encode: {O} objects exceed the grid")
     if Bp == 0:
         return
+    fn = _encode_fn(M, l, device)
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.gf_encode(data.data_ptr(), out.data_ptr(), planes.data_ptr(),
-                           l, rows, k, Bp, O, threads, stream)
-    _raise_on("gf_encode", rc)
+        rc = lib.gf_module_launch_encode(fn, data.data_ptr(), out.data_ptr(), Bp, O, Bp,
+                                         threads, stream)
+    if rc:
+        raise RuntimeError(f"gf_encode: launch failed with CUDA driver error {rc}")
     gf_encode.launches += 1
 
 
 gf_encode.launches = 0
+gf_encode.compiles = 0
 
+
+# ---------------------------------------------------------------------------
+# gf_encode_mxu: the bit-lift on the int8 tensor cores (wgmma)
+# ---------------------------------------------------------------------------
 
 def bitlift_matrix(M, l: int) -> np.ndarray:
     """Lift (rows, k) GF(2^l) coefficients to the (rows*l, k*l) F2 matrix (int8).
@@ -299,7 +491,7 @@ def bitlift_matrix(M, l: int) -> np.ndarray:
 
 
 def padded_bitlift(M, l: int) -> np.ndarray:
-    """``bitlift_matrix`` zero-padded to whole 16 x 32 int8 MMA fragments."""
+    """``bitlift_matrix`` zero-padded to whole 16 x 32 int8 fragments."""
     lifted = bitlift_matrix(M, l)
     R, K = lifted.shape
     out = np.zeros((-(-R // 16) * 16, -(-K // 32) * 32), dtype=np.int8)
@@ -307,48 +499,116 @@ def padded_bitlift(M, l: int) -> np.ndarray:
     return out
 
 
-# gf_mxu.cu keeps a warp's A fragments in registers: at most 2 m-tiles of 16
-# lifted rows per warp (8 warps) and 8 k-steps of 32 lifted columns.
-MXU_MAX_LIFTED = 256
+MXU_MAX_SMEM = 232448   # shared memory one block may use on the H100 (227 KB)
 
 
-def gf_encode_mxu(data: torch.Tensor, lifted: torch.Tensor, out: torch.Tensor,
+def mxu_tiling(rows: int, k: int, l: int) -> tuple[int, int, int]:
+    """(NT, n-tiles, K_pad) of the bit-lift: the lifted rows padded to a
+    multiple of 64 and cut into n-tiles of NT (64, 128 or 256, wgmma's N),
+    the lifted columns padded to K_pad, a multiple of wgmma's 32-byte K."""
+    npad = -(-rows * l // 64) * 64
+    nt = 256 if npad % 256 == 0 else 128 if npad % 128 == 0 else 64
+    return nt, npad // nt, -(-k * l // 32) * 32
+
+
+def mxu_row_order(rows: int, l: int) -> np.ndarray:
+    """Lifted row held by each column n of the wgmma product.
+
+    In an n-tile of NT columns, thread t of a quad holds accumulator columns
+    8c + 2t + p; ordered q = 2c + p, they are the l bits (q % l) of its
+    NT / (4l) output rows t * NT / (4l) + q // l. So a thread's registers
+    hold whole output words."""
+    nt, n_tiles, _ = mxu_tiling(rows, 1, l)
+    n = np.arange(nt * n_tiles)
+    tile, nn = np.divmod(n, nt)
+    c, rem = np.divmod(nn, 8)
+    t, p = np.divmod(rem, 2)
+    rr, b = np.divmod(2 * c + p, l)
+    return (tile * (nt // l) + t * (nt // (4 * l)) + rr) * l + b
+
+
+def mxu_operand(M, l: int) -> np.ndarray:
+    """The lifted matrix as ``gf_encode_mxu`` keeps it in shared memory.
+
+    Rows in ``mxu_row_order``, zero-padded to n-tiles x NT rows and K_pad
+    columns, stored K-major as wgmma's unswizzled core matrices of 8 rows x
+    16 bytes: shape (K_pad / 32, n-tiles, NT / 8, 2, 8, 16) = (k-step,
+    n-tile, 8-row group, 16-byte half of the k-step, row, byte), in memory
+    order."""
+    M = np.asarray(M)
+    rows, k = M.shape
+    nt, n_tiles, K_pad = mxu_tiling(rows, k, l)
+    lifted = bitlift_matrix(M, l)
+    full = np.zeros((nt * n_tiles, K_pad), dtype=np.int8)
+    full[:rows * l, :k * l] = lifted
+    A = full[mxu_row_order(rows, l)]
+    img = A.reshape(nt * n_tiles // 8, 8, K_pad // 32, 2, 16).transpose(2, 0, 3, 1, 4)
+    return np.ascontiguousarray(img).reshape(K_pad // 32, n_tiles, nt // 8, 2, 8, 16)
+
+
+def mxu_operand_lifted(image: np.ndarray, rows: int, l: int) -> np.ndarray:
+    """Inverse of ``mxu_operand``: the zero-padded lifted matrix in its
+    natural row order, (n-tiles x NT, K_pad)."""
+    ks, n_tiles, nt8 = image.shape[:3]
+    npad, K_pad = n_tiles * nt8 * 8, ks * 32
+    A = image.reshape(ks, npad // 8, 2, 8, 16).transpose(1, 3, 0, 2, 4).reshape(npad, K_pad)
+    full = np.empty_like(A)
+    full[mxu_row_order(rows, l)] = A
+    return full
+
+
+def mxu_smem_bytes(rows: int, k: int, l: int) -> int:
+    """Shared memory one ``gf_encode_mxu`` block needs for a (rows, k) matrix
+    (the library computes it, so it needs the card's build)."""
+    nt, n_tiles, K_pad = mxu_tiling(rows, k, l)
+    return int(load_library().gf_encode_mxu_smem_bytes(l, k, nt, n_tiles, K_pad))
+
+
+def gf_encode_mxu(data: torch.Tensor, operand: torch.Tensor, out: torch.Tensor,
                   l: int) -> None:
     """Bit-lifted encode on the int8 tensor cores (replaces
     ``gf_encode_mxu_kernel``).
 
     Shapes: ``data`` (k, B) and ``out`` (rows, B) words (uint8 for GF(2^8),
-    uint16 for GF(2^16)); ``lifted`` the (R_pad, K_pad) int8
-    ``padded_bitlift`` of the (rows, k) matrix. Ragged B is masked in the
-    kernel.
+    uint16 for GF(2^16)); ``operand`` the int8 ``mxu_operand`` of the
+    (rows, k) matrix. Ragged B is zero-filled by the loads and masked in the
+    stores. Raises, before launching, if the lifted matrix and the tile
+    buffers exceed the 227 KB of shared memory a block may use.
     """
     word = gf.TORCH_WORD_DTYPE.get(l)
     if word is None:
         raise ValueError(f"gf_encode_mxu: unsupported field GF(2^{l})")
     device = _check_tensors("gf_encode_mxu", {"data": word, "out": word,
-                                              "lifted": torch.int8},
-                            data=data, lifted=lifted, out=out)
-    if data.dim() != 2 or out.dim() != 2 or lifted.dim() != 2:
-        raise ValueError("gf_encode_mxu: data, out and lifted must be 2-D")
+                                              "operand": torch.int8},
+                            data=data, operand=operand, out=out)
+    if data.dim() != 2 or out.dim() != 2 or operand.dim() != 6:
+        raise ValueError("gf_encode_mxu: data and out must be 2-D, operand 6-D")
     k, B = data.shape
     rows = out.shape[0]
-    R_pad, K_pad = lifted.shape
-    if (rows < 1 or k < 1 or out.shape[1] != B or R_pad != -(-rows * l // 16) * 16
-            or K_pad != -(-k * l // 32) * 32):
-        raise ValueError(f"gf_encode_mxu: lifted {tuple(lifted.shape)} / out "
-                         f"{tuple(out.shape)} do not match data {tuple(data.shape)}")
-    if R_pad > MXU_MAX_LIFTED or K_pad > MXU_MAX_LIFTED:
-        raise ValueError(f"gf_encode_mxu: a ({rows}, {k}) matrix lifts to "
-                         f"{R_pad} x {K_pad} padded bits; the kernel takes at most "
-                         f"{MXU_MAX_LIFTED} x {MXU_MAX_LIFTED} (rows * l and k * l "
-                         f"up to {MXU_MAX_LIFTED})")
+    if rows < 1 or k < 1 or out.shape[1] != B:
+        raise ValueError(f"gf_encode_mxu: out {tuple(out.shape)} does not match data "
+                         f"{tuple(data.shape)}")
+    nt, n_tiles, K_pad = mxu_tiling(rows, k, l)
+    if tuple(operand.shape) != (K_pad // 32, n_tiles, nt // 8, 2, 8, 16):
+        raise ValueError(f"gf_encode_mxu: operand {tuple(operand.shape)} is not the "
+                         f"mxu_operand of a ({rows}, {k}) matrix over GF(2^{l})")
+    if B >= 1 << 31:
+        raise ValueError(f"gf_encode_mxu: {B} words exceed the 2^31 TMA coordinates")
+    smem = mxu_smem_bytes(rows, k, l)
+    if smem > MXU_MAX_SMEM:
+        raise ValueError(f"gf_encode_mxu: a ({rows}, {k}) matrix over GF(2^{l}) needs "
+                         f"{smem} bytes of shared memory (lifted matrix and tile buffers); "
+                         f"a block may use at most {MXU_MAX_SMEM} (227 KB)")
     if B == 0:
         return
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.gf_encode_mxu(data.data_ptr(), out.data_ptr(), lifted.data_ptr(),
-                               l, rows, k, B, R_pad, K_pad, stream)
+        rc = lib.gf_encode_mxu(data.data_ptr(), out.data_ptr(), operand.data_ptr(),
+                               l, rows, k, B, nt, n_tiles, K_pad, stream)
+    if rc >= 10000:
+        raise RuntimeError(f"gf_encode_mxu: building the TMA descriptor failed with "
+                           f"CUDA driver error {rc - 10000}")
     _raise_on("gf_encode_mxu", rc)
     gf_encode_mxu.launches += 1
 

@@ -24,7 +24,7 @@ import torch
 from repro_torch.core import gf
 from repro_torch.kernels.gf_encode import kernel, ref
 
-DEFAULT_BLOCK = kernel.MAX_ENCODE_THREADS   # lanes per block of the bit-plane encode
+DEFAULT_BLOCK = 512   # lanes per block of the bit-plane encode, as in the JAX package
 
 
 def _route(x: torch.Tensor, cuda_fn, cpu_fn):
@@ -131,25 +131,27 @@ def _matrix_key(M) -> tuple[tuple[int, ...], ...]:
 
 
 @functools.lru_cache(maxsize=256)
-def _planes(M_key, l: int, device: torch.device) -> torch.Tensor:
-    """The (rows, k, l) bit-plane table of M as int32 on ``device``, cached so
-    a warm call makes no host-to-device copy. Callers must not write to it."""
-    planes = gf.bitplane_table(np.asarray(M_key), l).astype(np.int32)
-    return torch.from_numpy(planes).to(device)
+def _operand(M_key, l: int, device: torch.device) -> torch.Tensor:
+    """``kernel.mxu_operand`` of M on ``device``, cached so a warm call makes
+    no host-to-device copy. Callers must not write to it."""
+    return torch.from_numpy(kernel.mxu_operand(np.asarray(M_key), l)).to(device)
 
 
-@functools.lru_cache(maxsize=256)
-def _lifted(M_key, l: int, device: torch.device) -> torch.Tensor:
-    """``kernel.padded_bitlift`` of M on ``device``, cached like ``_planes``."""
-    return torch.from_numpy(kernel.padded_bitlift(np.asarray(M_key), l)).to(device)
+def _encode_threads(Bp: int, block: int | None) -> int:
+    """Threads per block of the specialised kernel (one lane a thread) for
+    ``block`` lanes per block, rounded to whole warps within its [32, 256];
+    ``None``: the kernel's own choice."""
+    if block is None:
+        return kernel.ENCODE_THREADS
+    lanes = pick_block(Bp, block)
+    return min(kernel.ENCODE_MAX_THREADS, max(32, -(-lanes // 32) * 32))
 
 
 def _encode_packed_cuda(M: np.ndarray, x: torch.Tensor, l: int,
                         block: int | None) -> torch.Tensor:
     Bp = x.shape[-1]
     out = torch.empty((x.shape[0], M.shape[0], Bp), dtype=torch.int32, device=x.device)
-    kernel.gf_encode(x.contiguous(), _planes(_matrix_key(M), l, x.device), out, l,
-                     pick_block(Bp, DEFAULT_BLOCK if block is None else block))
+    kernel.gf_encode(x.contiguous(), M, out, l, _encode_threads(Bp, block))
     return out
 
 
@@ -181,7 +183,7 @@ def encode_words(M: np.ndarray, data: torch.Tensor, l: int,
 
 def _encode_mxu_cuda(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
     out = torch.empty((M.shape[0], data.shape[1]), dtype=data.dtype, device=data.device)
-    kernel.gf_encode_mxu(data.contiguous(), _lifted(_matrix_key(M), l, data.device),
+    kernel.gf_encode_mxu(data.contiguous(), _operand(_matrix_key(M), l, data.device),
                          out, l)
     return out
 
@@ -189,8 +191,9 @@ def _encode_mxu_cuda(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
 def encode_mxu(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
     """Bit-lifted encode on the int8 tensor cores: (k, B) words -> (rows, B)
     words of ``gf.TORCH_WORD_DTYPE[l]``. Any B: the kernel masks the ragged
-    end of its last 128-word tile, and reads and writes the words in their
-    own type."""
+    end of its last 64-word tile, and reads and writes the words in their
+    own type. A matrix whose lifted form does not fit a block's shared
+    memory raises (``kernel.gf_encode_mxu``)."""
     M = np.asarray(M)
     if M.ndim != 2 or data.dim() != 2 or data.shape[0] != M.shape[1]:
         raise ValueError(f"encode_mxu: coefficients {M.shape} and data "

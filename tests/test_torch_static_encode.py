@@ -149,13 +149,17 @@ def test_bitlift_ref_walks_columns_in_chunks(monkeypatch):
 def test_encode_wrappers_refuse_cpu_tensors_and_bad_shapes():
     """The CUDA wrappers never compute on the CPU: they raise before building."""
     z = lambda *s, dtype=torch.int32: torch.zeros(s, dtype=dtype)
-    before = kernel.launch_counts()
+    before, compiles = kernel.launch_counts(), kernel.gf_encode.compiles
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.gf_encode(z(1, 4, 8), z(2, 4, 8), z(1, 2, 8), 8, 8)
+        kernel.gf_encode(z(1, 4, 8), np.ones((2, 4), np.int64), z(1, 2, 8), 8)
     with pytest.raises(ValueError, match="CUDA"):
         kernel.gf_encode_mxu(z(4, 8, dtype=torch.uint8), z(16, 32, dtype=torch.int8),
                              z(2, 8, dtype=torch.uint8), 8)
-    assert kernel.launch_counts() == before
+    with pytest.raises(ValueError, match="CUDA"):       # past the old 256-bit cap
+        kernel.gf_encode_mxu(z(11, 8, dtype=torch.uint16),
+                             torch.from_numpy(kernel.mxu_operand(np.ones((17, 11)), 16)),
+                             z(17, 8, dtype=torch.uint16), 16)
+    assert kernel.launch_counts() == before and kernel.gf_encode.compiles == compiles
     assert set(before) == {"chain_tick", "repair_tick", "gf_encode", "gf_encode_mxu"}
     with pytest.raises(ValueError):
         ops.encode_packed(np.ones((2, 3), np.int64), z(4, 8), 8)
@@ -209,17 +213,24 @@ def test_gf_encode_mxu_kernel_matches_plain(cuda, l, rows, k, B):
 
 
 @pytest.mark.gpu
-def test_kernels_refuse_matrices_past_their_limits(cuda):
-    """Past a stated limit the wrappers raise before launching; nothing
-    falls back to the plain version."""
+@pytest.mark.parametrize("case", ["mxu (17, 11)", "mxu (2, 17)", "packed (12, 64)"])
+def test_kernels_run_matrices_past_their_old_limits(cuda, case):
+    """Matrices the kernels once refused (over 256 lifted rows or columns;
+    planes past 48 KB) run through the kernels, with ragged B and Bp, and
+    equal the plain versions."""
+    kind, shape = case.split(" ", 1)
+    rows, k = (int(v) for v in shape.strip("()").split(","))
+    rng = np.random.default_rng(rows * k)
+    M = coeffs(rng, rows, k, 16)
     before = kernel.launch_counts()
-    x = torch.zeros((1, 64, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):   # (12 + 1) * 64 * 16 * 4 > 48 KB
-        ops.encode_packed(np.ones((12, 64), np.int64), x, 16)
-    words16 = torch.zeros((11, 8), dtype=torch.uint16, device=cuda)
-    with pytest.raises(ValueError, match="at most"):         # 17 rows lift to 272 > 256
-        ops.encode_mxu(np.ones((17, 11), np.int64), words16, 16)
-    with pytest.raises(ValueError, match="at most"):         # 17 inputs lift to 272 > 256
-        ops.encode_mxu(np.ones((2, 17), np.int64), torch.zeros((17, 8), dtype=torch.uint16,
-                                                               device=cuda), 16)
-    assert kernel.launch_counts() == before
+    if kind == "mxu":
+        for B in (998, 1002):
+            x = torch.from_numpy(words(rng, (k, B), 16)).to(cuda)
+            got, want = ops.encode_mxu(M, x, 16), ref.bitlift_encode_ref(M, x, 16)
+            assert torch.equal(got.to(torch.int32), want.to(torch.int32))
+        assert kernel.gf_encode_mxu.launches == before["gf_encode_mxu"] + 2
+    else:
+        for Bp in (499, 500):
+            x = torch.from_numpy(words(rng, (k, 2 * Bp), 16).view(np.int32)).to(cuda)
+            assert torch.equal(ops.encode_packed(M, x, 16), ref.encode_packed_ref(M, x, 16))
+        assert kernel.gf_encode.launches == before["gf_encode"] + 2
