@@ -6,11 +6,13 @@
 Phases, each of which must pass or the script exits non-zero before its
 last line:
 
-1. Build the CUDA tick kernels from ``src/repro_torch/kernels/gf_encode/csrc``
-   with nvcc (timed) and print the card's name and power limit.
+1. Build the CUDA kernels from ``src/repro_torch/kernels/gf_encode/csrc``
+   with nvcc, one process per source (timed), and print the card's name
+   and power limit.
 2. Hold each kernel bit-exact against its plain PyTorch version on the card,
-   for GF(2^8) and GF(2^16), one and two replica slots, and a ragged lane
-   count; print each kernel's median time at those shapes.
+   for GF(2^8) and GF(2^16), one and two replica slots, one and two
+   objects and ragged lane counts (``chain_tick`` with and without the
+   last node's wire); print each kernel's median time at those shapes.
 3. The main path at the paper's production size (§VI, Table II): a (16,11)
    RapidRAID code over GF(2^16) archives a 704 MiB object (11 blocks of
    2^25 words) by ``pipelined_encode`` in 8 chunks; 5 nodes are lost (the
@@ -21,7 +23,10 @@ last line:
    and in sampled windows against the host numpy field; the decoded object
    must equal the data.
 4. Replay the main path's ticks through each kernel and through its plain
-   version, check they agree, and time both.
+   version, check they agree and give the codeword, and time both; print
+   the host build of the product tables, first and cached, and the
+   encode's peak device bytes. (``tools/ab_chain_tick.py`` times an
+   earlier build of the encode tick against the package's.)
 5. Hold the static-coefficient kernels (bit-plane ``gf_encode``, built per
    matrix at its first use, and bit-lift ``gf_encode_mxu``) bit-exact
    against their plain versions on the card at small, ragged shapes,
@@ -98,6 +103,12 @@ SOURCE = {"chain_tick": CSRC + "gf_tick.cu", "repair_tick": CSRC + "gf_tick.cu",
           "gf_encode": CSRC + "gf_encode.cu", "gf_encode_mxu": CSRC + "gf_mxu.cu"}
 
 
+def smi(query: str) -> str:
+    """``nvidia-smi --query-gpu=<query>`` for the card, as one csv line."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -154,45 +165,49 @@ def phase_kernels(dev, seed: int, errs: dict) -> None:
     """Each kernel against its plain version at small, ragged shapes."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n, O, chunks, t = 5, 2, 3, 3            # tick 3: nodes 1..3 active
-    for l, max_b in itertools.product((8, 16), (1, 2)):
-        S = 1000 + 3 * l + max_b                # not a multiple of the tile
+    n, R, chunks, t = 5, 4, 3, 4            # tick 4: nodes 2..4, 4 is the last
+    lo, count = pipeline.active_nodes(t, n, chunks)
+    for l, max_b, S, O in itertools.product((8, 16), (1, 2), (37, 1000, 1002), (1, 2)):
         wire_in = rand_i32(gen, (n + 1, O, S), dev)
-        local = rand_i32(gen, (n, O, max_b, S * chunks), dev)
-        bp_psi = planes(rng, (n, max_b), l, dev)
-        bp_xi = planes(rng, (n, max_b), l, dev)
-        bp_psi[2, max_b - 1] = 0                # a padded slot: all planes zero
-        bp_xi[2, max_b - 1] = 0
-        bp_psi[3] = 0                           # a last node: no psi
-        lo, count = pipeline.active_nodes(t, n, chunks)
+        src = rand_i32(gen, (O, R, S * chunks), dev)
+        slots = rng.integers(0, R, size=(n, max_b)).astype(np.int32)
+        psi, xi = rng.integers(1, 1 << l, size=(2, n, max_b))
+        slots[2, max_b - 1] = -1                # a padded slot
+        psi[2, max_b - 1] = xi[2, max_b - 1] = 0
+        psi[n - 1] = 0                          # the last node: no psi
+        bp_psi, bp_xi = gf.bitplane_table(psi, l), gf.bitplane_table(xi, l)
+        tables = torch.from_numpy(kernel.product_tables(bp_psi, bp_xi, l).view(np.int32)).to(dev)
+        check_table_planes(tables, bp_psi, bp_xi, l, f"l={l} max_b={max_b}")
+        wire_rows = n if O == 1 else n + 1      # without and with the last node's wire
         outs = []
         for fn in (kernel.chain_tick, ref.chain_tick_ref):
             out = torch.zeros((n, O, S * chunks), dtype=torch.int32, device=dev)
-            wire_out = torch.zeros_like(wire_in)
-            fn(wire_in, wire_out, local, out, bp_psi, bp_xi, l, t, chunks, lo, count)
+            wire_out = torch.zeros((wire_rows, O, S), dtype=torch.int32, device=dev)
+            fn(wire_in, wire_out, src, slots, out, tables, l, t, chunks, lo, count)
             outs.append((out, wire_out))
         torch.cuda.synchronize()
-        for got, want in zip(outs[0], outs[1]):
-            check(torch.equal(got, want), f"chain_tick l={l} max_b={max_b}")
+        for got, want in zip(*outs):
+            check(torch.equal(got, want), f"chain_tick l={l} max_b={max_b} S={S} O={O}")
             errs["chain_tick"] = max(errs["chain_tick"], max_abs_err(got, want))
+        if (S, O) != (1000, 2):
+            continue
         # the single-node op with the JAX shapes, batched
         x1 = rand_i32(gen, (O, 1, S), dev)
         loc1 = rand_i32(gen, (O, max_b, S), dev)
-        c, xo = ops.chain_step(x1, loc1, bp_psi[0], bp_xi[0], l)
+        p_psi, p_xi = (torch.from_numpy(bp[0].astype(np.int32)).to(dev)
+                       for bp in (bp_psi, bp_xi))
+        c, xo = ops.chain_step(x1, loc1, p_psi, p_xi, l)
         for o in range(O):
-            cr, xr = ref.chain_step_ref(x1[o], loc1[o], _coeffs(bp_psi[0]),
-                                        _coeffs(bp_xi[0]), l)
+            cr, xr = ref.chain_step_ref(x1[o], loc1[o], psi[0], xi[0], l)
             check(torch.equal(c[o], cr) and torch.equal(xo[o], xr),
                   f"chain_step l={l} max_b={max_b}")
-        wire_out = torch.zeros_like(wire_in)
-        out = torch.zeros((n, O, S * chunks), dtype=torch.int32, device=dev)
-        ms = median_ms(lambda: kernel.chain_tick(wire_in, wire_out, local, out,
-                                                 bp_psi, bp_xi, l, t, chunks,
-                                                 lo, count), 20)
-        print(f"chain_tick  l={l:2d} max_b={max_b} nodes={count} O={O} S={S}: "
-              f"bit-exact, median {ms:.4f} ms")
+        out, wire_out = outs[0]
+        ms = median_ms(lambda: kernel.chain_tick(wire_in, wire_out, src, slots, out, tables,
+                                                 l, t, chunks, lo, count), 20)
+        print(f"chain_tick  l={l:2d} max_b={max_b} nodes={count} O=1,2 S=37,1000,1002: "
+              f"bit-exact; median at O={O} S={S}: {ms:.4f} ms")
 
-    n, t = 4, 4                                 # tick 4: nodes 2..3, 3 is last
+    n, O, t = 4, 2, 4                           # tick 4: nodes 2..3, 3 is last
     for l, rows in itertools.product((8, 16), (3, 11)):
         S = 1000 + 3 * l + rows
         wire_in = rand_i32(gen, (n, O, rows, S), dev)
@@ -220,6 +235,15 @@ def phase_kernels(dev, seed: int, errs: dict) -> None:
                                                   bp, l, t, chunks, lo, count), 20)
         print(f"repair_tick l={l:2d} rows={rows:2d} nodes={count} O={O} S={S}: "
               f"bit-exact, median {ms:.4f} ms")
+
+
+def check_table_planes(tables: torch.Tensor, bp_psi, bp_xi, l: int, what: str) -> None:
+    """The plain chain tick reads only the tables' single-bit entries, the
+    bit-planes c * alpha^b: hold them against ``gf.bitplane_table`` of the
+    coefficients, so the plain version does not rest on the table builder."""
+    got_psi, got_xi = ref.table_planes(tables.cpu(), l)
+    check(np.array_equal(got_psi.numpy(), bp_psi) and np.array_equal(got_xi.numpy(), bp_xi),
+          f"product tables' single-bit entries are the coefficients' bit-planes ({what})")
 
 
 def _coeffs(bp_rows: torch.Tensor) -> np.ndarray:
@@ -563,12 +587,9 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel.load_library()
     build_s = time.perf_counter() - t0
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
     print(f"build: {build_s:.2f} s ({kernel.library_path().name})")
     print("ptxas:", " | ".join(ptxas_summary(kernel.build_log())))
-    print(smi)  # the card's name and power limit, as nvidia-smi gives them
+    print(smi("name,power.limit"))  # the card's name and power limit
 
     # -- phase 2: kernels vs plain versions, small ragged shapes -------------
     errs = dict.fromkeys(REPLACES, 0)
@@ -587,6 +608,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     kernel.reset_launch_counts()
     t0 = time.perf_counter()
     cw = chain.pipelined_encode(code, data, num_chunks=NUM_CHUNKS)
@@ -630,7 +652,8 @@ def main() -> int:
           f"({mib:.0f} MiB), {NUM_CHUNKS} chunks, lost nodes {lost}")
     print(f"encode: {enc_ms:.3f} ms wall first call, {enc_warm:.3f} ms median of "
           f"5 repeats ({mib / enc_warm * 1e3:.1f} MiB/s of object), chain_tick "
-          f"launches {enc_counts['chain_tick']}, peak {enc_peak / 2**30:.2f} GiB")
+          f"launches {enc_counts['chain_tick']}, peak {enc_peak / 2**30:.2f} GiB "
+          f"({(enc_peak - resident) / 2**30:.3f} GiB above the resident object)")
     print(f"decode: {dec_ms:.3f} ms wall first call, {dec_warm:.3f} ms median of "
           f"5 repeats ({mib / dec_warm * 1e3:.1f} MiB/s of object), repair_tick "
           f"launches {counts['repair_tick']}, peak {dec_peak / 2**30:.2f} GiB")
@@ -639,22 +662,32 @@ def main() -> int:
 
     # -- phase 4: the main path's ticks, kernel vs plain version --------------
     Bp, S = B // 2, B // 2 // NUM_CHUNKS
-    local, bp_psi, bp_xi = chain.encode_operands(code, data_p)
-    placement_ms = median_ms(lambda: chain.encode_operands(code, data_p), 5)
-    enc_outs = {}
+    chain.product_tables.cache_clear()
+    t0 = time.perf_counter()
+    chain.product_tables(code)
+    table_first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    chain.product_tables(code)
+    table_cached_ms = (time.perf_counter() - t0) * 1e3
+    src, slots, tables = chain.encode_operands(code, data_p)
+    check_table_planes(tables, *chain.bitplane_coeff_planes(code), L, "main path")
+    enc_outs, timings = {}, {}
 
     def enc_tick(tick, wi, wo, t, lo, count):
-        tick(wi, wo, local, enc_outs[tick], bp_psi, bp_xi, L, t, NUM_CHUNKS, lo, count)
+        tick(wi, wo, src, slots, enc_outs[tick], tables, L, t, NUM_CHUNKS, lo, count)
 
-    timings = {}
+    clocks = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
     for tick, reps in ((kernel.chain_tick, 5), (ref.chain_tick_ref, 3)):
         enc_outs[tick] = torch.empty((N, 1, Bp), dtype=torch.int32, device=dev)
-        timings[tick] = median_ms(replay(N, tick, (N + 1, 1, S), dev, enc_tick), reps)
+        timings[tick] = median_ms(replay(N, tick, (N, 1, S), dev, enc_tick), reps)
     check(torch.equal(enc_outs[kernel.chain_tick], enc_outs[ref.chain_tick_ref]),
           "chain_tick == plain version over the main path's ticks")
     check(torch.equal(enc_outs[kernel.chain_tick][:, 0], cw_p), "replayed codeword")
     errs["chain_tick"] = max(errs["chain_tick"], max_abs_err(
         enc_outs[kernel.chain_tick], enc_outs[ref.chain_tick_ref]))
+    print(f"chain_tick main path (23 ticks): {timings[kernel.chain_tick]:.3f} ms; sm MHz, "
+          f"mem MHz, W, C before the replay: {clocks}")
+    enc_outs.clear()
 
     dec_local = gf.pack_u32(shards, L)[:, None]
     bp = chain.decode_operands(code, ids, dev)
@@ -675,14 +708,15 @@ def main() -> int:
         dec_outs[kernel.repair_tick], dec_outs[ref.repair_tick_ref]))
 
     # Work over all of a run's ticks. Per active node and lane, chain_tick
-    # reads the wire and each replica slot and writes the codeword and the
-    # wire; each slot with nonzero planes costs l masks (shift, and), an
-    # xi multiply + xor, and a psi multiply + xor where psi is nonzero.
+    # reads the wire and each replica slot and writes the codeword and,
+    # except for the last node (the encode's wire has n rows), the wire;
+    # each slot with nonzero planes costs l masks (shift, and), an xi
+    # multiply + xor, and a psi multiply + xor where psi is nonzero.
     # repair_tick reads the local lane and `rows` sums and writes `rows`
     # sums, with l masks and rows * l multiply + xor.
     valid = code.chain.block_valid
     psi_nz = code.chain.psi != 0
-    enc_bytes = sum(3 + int(valid[i].sum()) for i in range(N)) * Bp * 4
+    enc_bytes = sum(2 + int(valid[i].sum()) + (i + 1 < N) for i in range(N)) * Bp * 4
     enc_ops = sum(L * (4 + 2 * int(psi_nz[i, s]))
                   for i in range(N) for s in range(code.chain.max_blocks)
                   if valid[i, s]) * Bp
@@ -692,8 +726,10 @@ def main() -> int:
              timings[ref.chain_tick_ref], enc_bytes, enc_ops)
     add_work(work, "repair_tick", counts["repair_tick"], timings[kernel.repair_tick],
              timings[ref.repair_tick_ref], *repair_tick_work(n_alive, K, Bp))
-    print(f"encode placement (gather + mask of the replica blocks): "
-          f"{placement_ms:.3f} ms")
+    print(f"encode operands: product tables {tuple(tables.shape)} built on the host in "
+          f"{table_first_ms:.3f} ms at the code's first encode, {table_cached_ms:.4f} ms "
+          f"cached; no placement copy: encode peak {enc_peak / 2**30:.3f} GiB, "
+          f"{(enc_peak - resident) / 2**30:.3f} GiB above the resident object")
     for name in ("chain_tick", "repair_tick"):
         report_work(name, work[name], "main path")
 

@@ -6,11 +6,12 @@
 per-matrix kernels, and ``gf_encode.cu`` the template of the
 static-coefficient bit-plane encode (``gf_encode``).
 
-The first three are compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``. The build runs
-at first use, from the sources in this package only, into
-``build/repro_torch/`` at the root of the checkout; the library's file name
-carries a hash of the sources and flags, so a stale build is never loaded.
+The first three are compiled with ``nvcc`` for ``sm_90a``, one process per
+source, all started together, and linked into a shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use,
+from the sources in this package only, into ``build/repro_torch/`` at the
+root of the checkout; the library's file name carries a hash of the
+sources and flags, so a stale build is never loaded.
 
 ``gf_encode`` is built per (matrix, field), as the TPU kernel bakes its
 matrix into its body: ``encode_source`` writes the matrix's terms into the
@@ -46,8 +47,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "gf_tick.cu", CSRC / "gf_mxu.cu", CSRC / "gf_module.cu")
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LINK_FLAGS = ("-lcuda",)   # the driver API: TMA descriptors, per-matrix modules
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-lcuda")   # the driver API: TMA descriptors, per-matrix modules
 SUPPORTED_L = (8, 16)
 MAX_B = (1, 2)
 _MAX_GRID_YZ = 65535
@@ -74,6 +75,30 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgf_tick-{h.hexdigest()[:16]}.so"
 
 
+def build_shared(sources, path: Path) -> str:
+    """Compile ``sources`` with nvcc, one process per source, all at once,
+    and link them into the shared library ``path`` (written atomically);
+    returns the compilers' output (the ``-Xptxas -v`` reports)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmp:
+        objs = [str(Path(tmp) / f"{i}-{Path(src).stem}.o") for i, src in enumerate(sources)]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(sources, objs)]
+        outs = [proc.communicate() for proc in procs]
+        log = "".join(out + err for out, err in outs)
+        for src, proc in zip(sources, procs):
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{log}")
+        so = str(Path(tmp) / "lib.so")
+        proc = subprocess.run([_nvcc(), "-o", so, *objs, *LINK_FLAGS],
+                              capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(so, path)  # atomic: a concurrent build never sees half a file
+    return log + proc.stdout + proc.stderr
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; returns the handle."""
     global _lib
@@ -81,20 +106,12 @@ def load_library() -> ctypes.CDLL:
         return _lib
     path = library_path()
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES), *LINK_FLAGS]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)  # atomic: a concurrent build never sees half a file
+        log = build_shared(SOURCES, path)
+        path.with_suffix(".log").write_text(log)
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gf_chain_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i64,
-                                  i64, i32, i32, i32, i32, vp]
+    lib.gf_chain_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                  i64, i64, i32, i32, i32, i32, vp]
     lib.gf_chain_tick.restype = i32
     lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                    i64, i64, i32, i32, i32, i32, vp]
@@ -158,50 +175,91 @@ def _raise_on(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
 
 
-def chain_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
-               local: torch.Tensor, out: torch.Tensor, bp_psi: torch.Tensor,
-               bp_xi: torch.Tensor, l: int, t: int, num_chunks: int,
-               node_lo: int, node_count: int) -> None:
+TABLE_BYTES = 256             # byte values a product table holds
+_MAX_TICK_NODES = 256         # active nodes one chain_tick launch takes
+
+
+def product_tables(bp_psi, bp_xi, l: int) -> np.ndarray:
+    """The ``chain_tick`` operand: each slot's products, from its bit-planes.
+
+    ``bp_psi`` / ``bp_xi`` (..., l) bit-plane constants (``c * alpha^b``, as
+    ``gf.bitplane_table`` gives them) -> (..., l // 8, 256) uint32 with
+    ``out[..., j, v] = xi * (v << 8j) | psi * (v << 8j) << 16``: a slot's
+    products of byte j of a word, the kept one in the low half and the
+    forwarded one in the high half. Entry v is the xor of the planes of v's
+    set bits, so the tables compute exactly what the planes do.
+    """
+    psi = np.asarray(bp_psi).astype(np.int64)
+    xi = np.asarray(bp_xi).astype(np.int64)
+    if l not in SUPPORTED_L or psi.shape != xi.shape or psi.shape[-1:] != (l,):
+        raise ValueError(f"product_tables: planes {psi.shape}, {xi.shape} must be "
+                         f"(..., {l}) for a supported field")
+    if psi.min(initial=0) < 0 or xi.min(initial=0) < 0 or max(
+            psi.max(initial=0), xi.max(initial=0)) >= 1 << l:
+        raise ValueError(f"product_tables: planes must be words of GF(2^{l})")
+    planes = (xi | psi << 16).astype(np.uint32).reshape(psi.shape[:-1] + (l // 8, 8))
+    bits = ((np.arange(TABLE_BYTES)[:, None] >> np.arange(8)) & 1).astype(np.uint32)
+    return np.bitwise_xor.reduce(planes[..., None, :] * bits, axis=-1)
+
+
+def _check_slots(name: str, slots, n_blocks: int) -> np.ndarray:
+    """The slot table as (n, max_b) int32 on the host, each a block index in
+    [0, n_blocks) or -1 (no block)."""
+    slots = np.asarray(slots)
+    if slots.ndim != 2 or slots.shape[1] not in MAX_B or slots.dtype.kind not in "iu":
+        raise ValueError(f"{name}: slots {slots.shape} must be (n, max_b) integers, "
+                         f"max_b in {MAX_B}")
+    if slots.size and (slots.min() < -1 or slots.max() >= n_blocks):
+        raise ValueError(f"{name}: slots must be block indices below {n_blocks} or -1")
+    return np.ascontiguousarray(slots, dtype=np.int32)
+
+
+def chain_tick(wire_in: torch.Tensor, wire_out: torch.Tensor, src: torch.Tensor,
+               slots, out: torch.Tensor, tables: torch.Tensor, l: int, t: int,
+               num_chunks: int, node_lo: int, node_count: int) -> None:
     """One encode tick on the card (replaces ``chain_step_kernel``).
 
-    Shapes: ``local`` (n, O, max_b, Bp), ``out`` (n, O, Bp), ``bp_psi`` and
-    ``bp_xi`` (n, max_b, l), ``wire_in`` (>= node_lo + node_count, O, S) and
-    ``wire_out`` (>= node_lo + node_count + 1, O, S) with S * num_chunks ==
-    Bp. Node i of [node_lo, node_lo + node_count) reads ``wire_in[i]`` and
-    chunk t - i of its local blocks, writes that chunk of ``out[i]`` and
-    writes ``wire_out[i + 1]``.
+    Shapes: ``src`` (O, R, Bp) the objects' packed blocks, read in place;
+    ``slots`` (n, max_b) host integers, node i's slot s holding block
+    ``slots[i, s]`` or nothing (-1); ``out`` (n, O, Bp); ``tables``
+    (n, max_b, l // 8, 256) from ``product_tables``; ``wire_in``
+    (>= node_lo + node_count, O, S) with S * num_chunks == Bp; ``wire_out``
+    (n or n + 1, O, S). Node i of [node_lo, node_lo + node_count) reads
+    ``wire_in[i]`` and chunk t - i of its blocks, writes that chunk of
+    ``out[i]`` and, where that row exists, ``wire_out[i + 1]``: an n-row
+    ``wire_out`` drops the last node's wire, which no node reads.
     """
     device = _check_tensors("chain_tick", wire_in=wire_in, wire_out=wire_out,
-                            local=local, out=out, bp_psi=bp_psi, bp_xi=bp_xi)
-    if local.dim() != 4:
-        raise ValueError(f"chain_tick: local {tuple(local.shape)} must be "
-                         f"(n, O, max_b, Bp)")
-    n, O, max_b, Bp = local.shape
+                            src=src, out=out, tables=tables)
+    if src.dim() != 3:
+        raise ValueError(f"chain_tick: src {tuple(src.shape)} must be (O, R, Bp)")
+    O, R, Bp = src.shape
+    slots = _check_slots("chain_tick", slots, R)
+    n, max_b = slots.shape
     S = wire_in.shape[-1]
     _check_tick("chain_tick", l, t, num_chunks, node_lo, node_count, n, O, S, Bp)
-    if max_b not in MAX_B:
-        raise ValueError(f"chain_tick: max_b={max_b} not in {MAX_B}")
-    if (out.shape != (n, O, Bp) or bp_psi.shape != (n, max_b, l)
-            or bp_xi.shape != (n, max_b, l)):
-        raise ValueError(f"chain_tick: out {tuple(out.shape)} / planes "
-                         f"{tuple(bp_psi.shape)}, {tuple(bp_xi.shape)} do not "
-                         f"match local {tuple(local.shape)}")
+    if out.shape != (n, O, Bp) or tables.shape != (n, max_b, l // 8, TABLE_BYTES):
+        raise ValueError(f"chain_tick: out {tuple(out.shape)} / tables "
+                         f"{tuple(tables.shape)} do not match {n} nodes x "
+                         f"{max_b} slots of src {tuple(src.shape)}")
     last = node_lo + node_count
     if (wire_in.dim() != 3 or wire_in.shape[0] < last or wire_in.shape[1] != O
-            or wire_out.dim() != 3 or wire_out.shape[0] < last + 1
+            or wire_out.dim() != 3 or wire_out.shape[0] not in (n, n + 1)
             or wire_out.shape[1:] != wire_in.shape[1:]):
         raise ValueError(f"chain_tick: wires {tuple(wire_in.shape)} -> "
-                         f"{tuple(wire_out.shape)} do not fit nodes < {last}")
+                         f"{tuple(wire_out.shape)} do not fit nodes < {last} of {n}")
     if wire_in.data_ptr() == wire_out.data_ptr():
         raise ValueError("chain_tick: wire_in and wire_out must not alias")
+    if node_count > _MAX_TICK_NODES:
+        raise ValueError(f"chain_tick: {node_count} active nodes exceed "
+                         f"{_MAX_TICK_NODES} per launch")
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gf_chain_tick(wire_in.data_ptr(), wire_out.data_ptr(),
-                               local.data_ptr(), out.data_ptr(),
-                               bp_psi.data_ptr(), bp_xi.data_ptr(), l, max_b,
-                               O, Bp, S, t, num_chunks, node_lo, node_count,
-                               stream)
+                               src.data_ptr(), out.data_ptr(), tables.data_ptr(),
+                               slots.ctypes.data, l, max_b, O, R, Bp, S, t,
+                               node_lo, node_count, wire_out.shape[0], stream)
     _raise_on("chain_tick", rc)
     chain_tick.launches += 1
 

@@ -35,13 +35,13 @@ def _route(x: torch.Tensor, cuda_fn, cpu_fn):
     raise ValueError(f"no kernel for device {x.device}")
 
 
-def chain_tick(wire_in, wire_out, local, out, bp_psi, bp_xi, l: int, t: int,
+def chain_tick(wire_in, wire_out, src, slots, out, tables, l: int, t: int,
                num_chunks: int, node_lo: int, node_count: int) -> None:
     """One encode tick over nodes [node_lo, node_lo + node_count); see
     ``kernel.chain_tick`` for shapes. Writes ``out`` and ``wire_out`` in place."""
-    fn = _route(local, kernel.chain_tick, ref.chain_tick_ref)
-    fn(wire_in, wire_out, local, out, bp_psi, bp_xi, l, t, num_chunks,
-       node_lo, node_count)
+    fn = _route(src, kernel.chain_tick, ref.chain_tick_ref)
+    fn(wire_in, wire_out, src, slots, out, tables, l, t, num_chunks, node_lo,
+       node_count)
 
 
 def repair_tick(wire_in, wire_out, local, out, bp, l: int, t: int,
@@ -74,11 +74,13 @@ def chain_step(x_in: torch.Tensor, local: torch.Tensor, bp_psi: torch.Tensor,
     if bp_psi.shape != (max_b, l) or bp_xi.shape != (max_b, l):
         raise ValueError(f"chain_step: planes must be {(max_b, l)}")
     dev = local.device
+    tables = kernel.product_tables(bp_psi.cpu().numpy(), bp_xi.cpu().numpy(), l)
     wire_out = torch.empty((2, O, C), dtype=torch.int32, device=dev)  # row 0 unused
     c = torch.empty((1, O, C), dtype=torch.int32, device=dev)
-    chain_tick(x_in.contiguous().view(1, O, C), wire_out,
-               local.contiguous()[None], c, bp_psi.contiguous()[None],
-               bp_xi.contiguous()[None], l, 0, 1, 0, 1)
+    # a one-node chain whose slots are the rows of `local`
+    chain_tick(x_in.contiguous().view(1, O, C), wire_out, local.contiguous(),
+               np.arange(max_b, dtype=np.int32)[None], c,
+               torch.from_numpy(tables.view(np.int32)).to(dev)[None], l, 0, 1, 0, 1)
     c, xo = c.view(O, 1, C), wire_out[1].view(O, 1, C)
     return (c[0], xo[0]) if single else (c, xo)
 

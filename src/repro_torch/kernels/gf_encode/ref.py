@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the CUDA kernels in ``csrc/``.
 
-Each function states the same math as its kernel: shifts and masks on
-packed int32 lanes for the ticks and the bit-plane encode, table
-arithmetic on words for ``encode_words_ref``, and a float32 product of 0/1
-bit-planes for the bit-lift. The CPU path runs them, the tests
+Each function states the math of the JAX kernel its CUDA kernel replaces:
+shifts and masks on packed int32 lanes for the ticks and the bit-plane
+encode (the CUDA chain tick looks products up in tables instead; an entry
+is the xor of the planes of its byte's set bits, so both compute the
+same), table arithmetic on words for ``encode_words_ref``, and a float32
+product of 0/1 bit-planes for the bit-lift. The CPU path runs them, the tests
 hold the JAX package against them, and ``chip_smoke.py`` holds the kernels
 against them on the card.
 """
@@ -97,29 +99,49 @@ def _tick_nodes(t: int, node_lo: int, node_count: int, device):
     return nodes, t - nodes
 
 
-def chain_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
-                   local: torch.Tensor, out: torch.Tensor, bp_psi: torch.Tensor,
-                   bp_xi: torch.Tensor, l: int, t: int, num_chunks: int,
-                   node_lo: int, node_count: int) -> None:
-    """Plain version of ``kernel.chain_tick``: same shapes, same in-place writes.
+def table_planes(tables: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bit-planes (bp_psi, bp_xi), each (..., l), behind product tables
+    (..., l // 8, 256): plane 8j + b is table j's entry for 1 << b."""
+    ent = tables[..., [1 << b for b in range(8)]].reshape(tables.shape[:-2] + (l,))
+    return (ent >> 16) & 0xFFFF, ent & 0xFFFF
 
-    Every mask ``(x >> b) & LSB`` feeds both the xi (kept) and the psi
-    (forwarded) accumulator, over all active nodes at once.
+
+def chain_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
+                   src: torch.Tensor, slots, out: torch.Tensor,
+                   tables: torch.Tensor, l: int, t: int, num_chunks: int,
+                   node_lo: int, node_count: int) -> None:
+    """Plain version of ``kernel.chain_tick``: same operands, same in-place
+    writes. Gathers each active node's blocks by indexing ``src`` and does
+    the JAX kernel's bit-plane arithmetic: every mask ``(x >> b) & LSB``
+    feeds both the xi (kept) and the psi (forwarded) accumulator, over all
+    active nodes at once.
+
+    Of the tables it reads only the single-bit entries (``table_planes``),
+    which are the bit-planes ``c * alpha^b`` themselves; the kernel reads
+    every entry. So it trusts the table builder for those entries alone:
+    ``chip_smoke.py`` and the tests hold them against ``gf.bitplane_table``
+    of the coefficients.
     """
-    n, O, max_b, Bp = local.shape
+    O, R, Bp = src.shape
+    slots = torch.tensor(np.asarray(slots), dtype=torch.int64)
+    n, max_b = slots.shape
     S = Bp // num_chunks
-    nodes, ch = _tick_nodes(t, node_lo, node_count, local.device)
-    x = wire_in[node_lo:node_lo + node_count]                    # (a, O, S)
-    blocks = local.view(n, O, max_b, num_chunks, S)[nodes, :, :, ch]  # (a, O, max_b, S)
+    nodes, ch = _tick_nodes(t, node_lo, node_count, src.device)
+    idx = slots[node_lo:node_lo + node_count].to(src.device)       # (a, max_b)
+    blocks = src.view(O, R, num_chunks, S)[:, idx.clamp(min=0), ch[:, None]]
+    blocks = blocks.permute(1, 0, 2, 3) * (idx >= 0)[:, None, :, None]  # (a, O, max_b, S)
+    bp_psi, bp_xi = table_planes(tables[nodes], l)                # (a, max_b, l)
+    x = wire_in[node_lo:node_lo + node_count]                      # (a, O, S)
     c = x.clone()
     xo = x.clone()
     for s in range(max_b):
         for b in range(l):
             m = (blocks[:, :, s] >> b) & gf.LSB_MASK[l]
-            c ^= m * bp_xi[nodes, s, b][:, None, None]
-            xo ^= m * bp_psi[nodes, s, b][:, None, None]
+            c ^= m * bp_xi[:, s, b][:, None, None]
+            xo ^= m * bp_psi[:, s, b][:, None, None]
     out.view(n, O, num_chunks, S)[nodes, :, ch] = c
-    wire_out[node_lo + 1:node_lo + node_count + 1] = xo
+    fwd = min(node_count, wire_out.shape[0] - 1 - node_lo)   # nodes whose wire row exists
+    wire_out[node_lo + 1:node_lo + fwd + 1] = xo[:fwd]
 
 
 def repair_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,

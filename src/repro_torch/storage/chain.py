@@ -6,8 +6,9 @@ combination from its predecessor, keeps its codeword block (xi path) and
 forwards the updated combination (psi path). Blocks stream through the
 pipeline (``repro_torch.core.pipeline``) in ``num_chunks`` chunks, and each
 tick is ONE launch of the hand-written CUDA tick kernel over the active
-nodes (``repro_torch.kernels.gf_encode``): pure shift/mask/mul/xor on packed
-int32 lanes, no gathers.
+nodes (``repro_torch.kernels.gf_encode``) on packed int32 lanes. The encode
+tick reads each node's replica blocks in place through a slot table, so
+the placement is never copied.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks run the kernels' plain PyTorch versions. Asking for a CUDA
@@ -28,7 +29,7 @@ import torch
 
 from repro_torch.core import gf, pipeline
 from repro_torch.core.codes import ErasureCode
-from repro_torch.kernels.gf_encode import ops
+from repro_torch.kernels.gf_encode import kernel, ops
 
 DEFAULT_NUM_CHUNKS = 8
 
@@ -82,10 +83,30 @@ def placement_indices(code: ErasureCode) -> tuple[np.ndarray, np.ndarray]:
     return idx, valid
 
 
+@functools.lru_cache(maxsize=None)
+def placement_slots(code: ErasureCode) -> np.ndarray:
+    """The encode tick's slot table, (n, max_b) int32: node i's slot s
+    holds object block ``slots[i, s]``, or nothing where it is -1."""
+    idx, valid = placement_indices(code)
+    slots = np.where(valid, idx, -1).astype(np.int32)
+    slots.setflags(write=False)    # shared cached copy — freeze it
+    return slots
+
+
+@functools.lru_cache(maxsize=None)
+def product_tables(code: ErasureCode) -> np.ndarray:
+    """The encode tick's product tables, (n, max_b, l // 8, 256) uint32
+    (``kernel.product_tables`` of ``bitplane_coeff_planes``). Cached per
+    code, so only a code's first encode builds them."""
+    tables = kernel.product_tables(*bitplane_coeff_planes(code), code.l)
+    tables.setflags(write=False)   # shared cached copy — freeze it
+    return tables
+
+
 def build_local_blocks(code: ErasureCode, data: np.ndarray) -> np.ndarray:
     """Replica placement on the host: (n, max_b, B) words; padded slots are zero.
 
-    Host reference of the on-device placement in ``encode_operands``.
+    What the encode tick's slot table reads (``placement_slots``).
     """
     idx, valid = placement_indices(code)
     data = np.asarray(data)
@@ -122,17 +143,12 @@ def _words(x, l: int, rows: int, what: str, device: torch.device) -> torch.Tenso
 
 
 def encode_operands(code: ErasureCode, data_packed: torch.Tensor):
-    """Placement and planes for the encode ticks, on ``data_packed``'s device.
-
-    data_packed (k, Bp) int32 -> (local (n, 1, max_b, Bp), bp_psi, bp_xi),
-    the planes (n, max_b, l) int32. The placement gather runs on the device.
-    """
-    idx, valid = placement_indices(code)
-    dev = data_packed.device
-    local = data_packed[torch.tensor(idx, dtype=torch.int64, device=dev)]
-    local.masked_fill_(~torch.tensor(valid, device=dev)[:, :, None], 0)
-    bp_psi, bp_xi = bitplane_coeff_planes(code)
-    return local[:, None], _planes(bp_psi, dev), _planes(bp_xi, dev)
+    """Operands of the encode ticks for ``data_packed`` (k, Bp) int32:
+    ``src`` (1, k, Bp), a view of the data (the ticks read the replica
+    blocks in place), ``slots`` (n, max_b) int32 on the host, and the
+    product tables (n, max_b, l // 8, 256) int32 on the data's device."""
+    tables = torch.from_numpy(product_tables(code).view(np.int32).copy())
+    return data_packed[None], placement_slots(code), tables.to(data_packed.device)
 
 
 def pipelined_encode(code: ErasureCode, data, num_chunks: int = DEFAULT_NUM_CHUNKS,
@@ -141,9 +157,10 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int = DEFAULT_NUM_CHUN
 
     ``data`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
     (GF(2^16)) words; the result is a tensor of words on ``device``.
-    Placement and packing run on the device; each tick writes every active
-    node's codeword chunk straight into the (n, Bp) output, and nodes
-    without a chunk in a tick are not launched at all.
+    The ticks read each node's replica blocks in place through the slot
+    table and write every active node's codeword chunk straight into the
+    (n, Bp) output; nodes without a chunk in a tick are not launched at
+    all. The wire has n rows: the last node's forward is never read.
     """
     if not code.supports_chain_encode:
         raise ValueError(
@@ -153,15 +170,15 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int = DEFAULT_NUM_CHUN
     l, n = code.l, code.n
     data = _words(data, l, code.k, "pipelined_encode", dev)
     _check_chunking(data.shape[1], l, num_chunks, "pipelined_encode")
-    local, bp_psi, bp_xi = encode_operands(code, gf.pack_u32(data, l))
-    Bp = local.shape[-1]
+    src, slots, tables = encode_operands(code, gf.pack_u32(data, l))
+    Bp = src.shape[-1]
     out = torch.empty((n, 1, Bp), dtype=torch.int32, device=dev)  # every chunk written once
 
     def step(wire_in, wire_out, t, lo, count):
-        ops.chain_tick(wire_in, wire_out, local, out, bp_psi, bp_xi, l, t,
+        ops.chain_tick(wire_in, wire_out, src, slots, out, tables, l, t,
                        num_chunks, lo, count)
 
-    pipeline.software_pipeline(step, n, num_chunks, (n + 1, 1, Bp // num_chunks),
+    pipeline.software_pipeline(step, n, num_chunks, (n, 1, Bp // num_chunks),
                                device=dev)
     return gf.unpack_u32(out[:, 0], l)
 

@@ -184,10 +184,12 @@ def test_host_helpers_match_jax(n, k, l):
     D = code.decode_matrix(ids)
     np.testing.assert_array_equal(chain.column_bitplanes(D, l),
                                   jchain.column_bitplanes(D, l))
-    # the on-device placement gather equals the host placement
-    local, _, _ = chain.encode_operands(code, gf.pack_u32(torch.from_numpy(data), l))
+    # the slot table over the object's blocks reads the host placement
+    src, slots, _ = chain.encode_operands(code, gf.pack_u32(torch.from_numpy(data), l))
+    local = torch.where(torch.from_numpy(slots >= 0)[:, :, None],
+                        src[0, torch.from_numpy(slots.clip(0)).long()], 0)
     want = jchain.build_local_blocks(jcode, data)
-    np.testing.assert_array_equal(gf.unpack_u32(local[:, 0], l).numpy(), want)
+    np.testing.assert_array_equal(gf.unpack_u32(local, l).numpy(), want)
 
 
 def test_order_chain_matches_jax():

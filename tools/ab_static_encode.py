@@ -40,12 +40,7 @@ N, K, L, B = 16, 11, 16, 1 << 25
 
 def build_old(old: Path) -> ctypes.CDLL:
     out = kernel.BUILD_DIR / "ab_old" / "libgf_old.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [kernel._nvcc(), *kernel.NVCC_FLAGS, "-o", str(out),
-           str(old / "gf_encode.cu"), str(old / "gf_mxu.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+    kernel.build_shared([old / "gf_encode.cu", old / "gf_mxu.cu"], out)
     lib = ctypes.CDLL(str(out))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.gf_encode.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, vp]
