@@ -10,9 +10,14 @@ last line:
    with nvcc, one process per source (timed), and print the card's name
    and power limit.
 2. Hold each kernel bit-exact against its plain PyTorch version on the card,
-   for GF(2^8) and GF(2^16), one and two replica slots, one and two
-   objects and ragged lane counts (``chain_tick`` with and without the
-   last node's wire); print each kernel's median time at those shapes.
+   for GF(2^8) and GF(2^16), one and two objects and ragged lane counts:
+   ``chain_tick`` at 1, 2, 3 and 5 replica slots (30 and 50, whose tables
+   are staged in turn), with and without the last node's wire, and over
+   300 active nodes (several launches); ``repair_tick`` through row tables
+   that are not the identity, with node 0's head row read and skipped, at
+   3, 11 and 13 rows, past the first kernel's 48 KB of planes (800 rows at
+   GF(2^16), 1600 at GF(2^8)) and over 300 active nodes. Print each
+   kernel's median time at the small shapes.
 3. The main path at the paper's production size (§VI, Table II): a (16,11)
    RapidRAID code over GF(2^16) archives a 704 MiB object (11 blocks of
    2^25 words) by ``pipelined_encode`` in 8 chunks; 5 nodes are lost (the
@@ -23,10 +28,11 @@ last line:
    and in sampled windows against the host numpy field; the decoded object
    must equal the data.
 4. Replay the main path's ticks through each kernel and through its plain
-   version, check they agree and give the codeword, and time both; print
-   the host build of the product tables, first and cached, and the
-   encode's peak device bytes. (``tools/ab_chain_tick.py`` times an
-   earlier build of the encode tick against the package's.)
+   version, check they agree and give the codeword and the object, and
+   time both; print the host build of the encode's and the decode's
+   product tables, first and cached, and the encode's peak device bytes.
+   (``tools/ab_chain_tick.py`` and ``tools/ab_repair_tick.py`` time earlier
+   builds of the tick kernels against the package's.)
 5. Hold the static-coefficient kernels (bit-plane ``gf_encode``, built per
    matrix at its first use, and bit-lift ``gf_encode_mxu``) bit-exact
    against their plain versions on the card at small, ragged shapes,
@@ -85,6 +91,8 @@ READ_BLOCKS = [0, 5, 10]
 READ_WORDS = 1 << 19
 PAST_CAPS_MXU = [(17, 11), (2, 17)]
 PAST_CAPS_PACKED = (12, 64)
+PAST_CAPS_MAX_B = (3, 5)                 # chain_tick slot counts past the unrolled 1 and 2
+PAST_CAPS_ROWS = ((16, 800), (8, 1600))  # repair_tick rows past 48 KB of planes
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -167,74 +175,159 @@ def phase_kernels(dev, seed: int, errs: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(seed)
     n, R, chunks, t = 5, 4, 3, 4            # tick 4: nodes 2..4, 4 is the last
     lo, count = pipeline.active_nodes(t, n, chunks)
-    for l, max_b, S, O in itertools.product((8, 16), (1, 2), (37, 1000, 1002), (1, 2)):
-        wire_in = rand_i32(gen, (n + 1, O, S), dev)
-        src = rand_i32(gen, (O, R, S * chunks), dev)
-        slots = rng.integers(0, R, size=(n, max_b)).astype(np.int32)
-        psi, xi = rng.integers(1, 1 << l, size=(2, n, max_b))
-        slots[2, max_b - 1] = -1                # a padded slot
-        psi[2, max_b - 1] = xi[2, max_b - 1] = 0
-        psi[n - 1] = 0                          # the last node: no psi
-        bp_psi, bp_xi = gf.bitplane_table(psi, l), gf.bitplane_table(xi, l)
-        tables = torch.from_numpy(kernel.product_tables(bp_psi, bp_xi, l).view(np.int32)).to(dev)
-        check_table_planes(tables, bp_psi, bp_xi, l, f"l={l} max_b={max_b}")
+    for l, max_b, S, O in itertools.product((8, 16), (1, 2) + PAST_CAPS_MAX_B, (37, 1000, 1002),
+                                            (1, 2)):
+        wire_in, src, slots, psi, xi, tables = chain_case(rng, gen, l, max_b, n, R, O, S,
+                                                          chunks, dev)
         wire_rows = n if O == 1 else n + 1      # without and with the last node's wire
-        outs = []
-        for fn in (kernel.chain_tick, ref.chain_tick_ref):
-            out = torch.zeros((n, O, S * chunks), dtype=torch.int32, device=dev)
-            wire_out = torch.zeros((wire_rows, O, S), dtype=torch.int32, device=dev)
-            fn(wire_in, wire_out, src, slots, out, tables, l, t, chunks, lo, count)
-            outs.append((out, wire_out))
-        torch.cuda.synchronize()
-        for got, want in zip(*outs):
-            check(torch.equal(got, want), f"chain_tick l={l} max_b={max_b} S={S} O={O}")
-            errs["chain_tick"] = max(errs["chain_tick"], max_abs_err(got, want))
+        check_chain_tick(wire_in, src, slots, tables, l, t, chunks, lo, count, wire_rows,
+                         errs, f"l={l} max_b={max_b} S={S} O={O}")
         if (S, O) != (1000, 2):
             continue
         # the single-node op with the JAX shapes, batched
         x1 = rand_i32(gen, (O, 1, S), dev)
         loc1 = rand_i32(gen, (O, max_b, S), dev)
-        p_psi, p_xi = (torch.from_numpy(bp[0].astype(np.int32)).to(dev)
-                       for bp in (bp_psi, bp_xi))
+        p_psi, p_xi = (torch.from_numpy(gf.bitplane_table(c[0], l).astype(np.int32)).to(dev)
+                       for c in (psi, xi))
         c, xo = ops.chain_step(x1, loc1, p_psi, p_xi, l)
         for o in range(O):
             cr, xr = ref.chain_step_ref(x1[o], loc1[o], psi[0], xi[0], l)
             check(torch.equal(c[o], cr) and torch.equal(xo[o], xr),
                   f"chain_step l={l} max_b={max_b}")
-        out, wire_out = outs[0]
+        out = torch.zeros((n, O, S * chunks), dtype=torch.int32, device=dev)
+        wire_out = torch.zeros((wire_rows, O, S), dtype=torch.int32, device=dev)
         ms = median_ms(lambda: kernel.chain_tick(wire_in, wire_out, src, slots, out, tables,
                                                  l, t, chunks, lo, count), 20)
         print(f"chain_tick  l={l:2d} max_b={max_b} nodes={count} O=1,2 S=37,1000,1002: "
               f"bit-exact; median at O={O} S={S}: {ms:.4f} ms")
+    # slots whose tables pass 48 KB, staged one group after another
+    for l, max_b in ((16, 30), (8, 50)):
+        wire_in, src, slots, _, _, tables = chain_case(rng, gen, l, max_b, n, R, 2, 1000,
+                                                       chunks, dev)
+        check_chain_tick(wire_in, src, slots, tables, l, t, chunks, lo, count, n + 1, errs,
+                         f"l={l} max_b={max_b}")
+    # a tick over more active nodes than one launch takes
+    n_wide, chunks_wide, t_wide = 310, 300, 305
+    lo_w, count_w = pipeline.active_nodes(t_wide, n_wide, chunks_wide)
+    for l, max_b, S in ((8, 1, 4), (16, 2, 3), (16, 3, 4)):
+        wire_in, src, slots, _, _, tables = chain_case(rng, gen, l, max_b, n_wide, R, 2, S,
+                                                       chunks_wide, dev)
+        before = kernel.chain_tick.launches
+        check_chain_tick(wire_in, src, slots, tables, l, t_wide, chunks_wide, lo_w, count_w,
+                         n_wide, errs, f"{count_w} nodes l={l} max_b={max_b} S={S}")
+        want = -(-count_w // min(kernel.MAX_TICK_NODES, kernel.MAX_TICK_SLOTS // max_b))
+        check(kernel.chain_tick.launches - before == want,
+              f"chain_tick over {count_w} nodes: {kernel.chain_tick.launches - before} "
+              f"launches, want {want}")
+    print(f"chain_tick past the old caps: max_b={PAST_CAPS_MAX_B} at O=1,2 S=37,1000,1002, "
+          f"max_b=30 (l=16) and 50 (l=8) staged in turn, {count_w} active nodes at "
+          f"max_b=1,2,3: bit-exact")
 
-    n, O, t = 4, 2, 4                           # tick 4: nodes 2..3, 3 is last
-    for l, rows in itertools.product((8, 16), (3, 11)):
+    n, O = 4, 2                                 # tick 4: nodes 2..3, 3 is last; tick 2: 0..2
+    for l, rows in itertools.product((8, 16), (3, 11, 13)):
         S = 1000 + 3 * l + rows
-        wire_in = rand_i32(gen, (n, O, rows, S), dev)
-        local = rand_i32(gen, (n, O, S * chunks), dev)
-        bp = planes(rng, (n, rows), l, dev)
+        wire_in, shards, shard_rows, tables, bp = repair_case(rng, gen, l, rows, n, O, S,
+                                                              chunks, dev)
+        check_repair_tick(wire_in, shards, shard_rows, tables, l, chunks, errs,
+                          f"l={l} rows={rows} S={S}")
+        acc = ops.repair_step(wire_in[0], shards[0, :, None, :S].contiguous(), bp[0], l)
+        for o in range(O):
+            want = ref.repair_step_ref(wire_in[0, o], shards[0, o, :S], _coeffs(bp[0]), l)
+            check(torch.equal(acc[o], want), f"repair_step l={l} rows={rows}")
+        lo, count = pipeline.active_nodes(4, n, chunks)
+        wire_out = torch.zeros_like(wire_in)
+        out = torch.zeros((O, rows, S * chunks), dtype=torch.int32, device=dev)
+        ms = median_ms(lambda: kernel.repair_tick(wire_in, wire_out, shards, shard_rows, out,
+                                                  tables, l, 4, chunks, lo, count), 20)
+        print(f"repair_tick l={l:2d} rows={rows:2d} nodes={count} O={O} S={S}: "
+              f"bit-exact, median {ms:.4f} ms")
+    # rows past 48 KB of planes: tables staged in turn
+    for (l, rows), S, O in itertools.product(PAST_CAPS_ROWS, (37, 1000), (1, 2)):
+        wire_in, shards, shard_rows, tables, _ = repair_case(rng, gen, l, rows, n, O, S,
+                                                             chunks, dev)
+        check_repair_tick(wire_in, shards, shard_rows, tables, l, chunks, errs,
+                          f"past the old cap l={l} rows={rows} S={S} O={O}")
+    # a tick over more active nodes than one launch takes
+    rows, l, S = 3, 16, 8
+    t_wide = n_wide - 1
+    lo_w, count_w = pipeline.active_nodes(t_wide, n_wide, chunks_wide)
+    wire_in, shards, shard_rows, tables, _ = repair_case(rng, gen, l, rows, n_wide, 1, S,
+                                                         chunks_wide, dev)
+    before = kernel.repair_tick.launches
+    check_repair_tick(wire_in, shards, shard_rows, tables, l, chunks_wide, errs,
+                      f"{count_w} nodes", ticks=((t_wide, False),))
+    check(kernel.repair_tick.launches - before == 2,
+          f"repair_tick over {count_w} nodes: {kernel.repair_tick.launches - before} launches")
+    print(f"repair_tick past the old caps: (l, rows) {PAST_CAPS_ROWS} at O=1,2 S=37,1000, "
+          f"{count_w} active nodes; row tables not the identity, head row read and "
+          f"skipped: bit-exact")
+
+
+def chain_case(rng, gen, l, max_b, n, R, O, S, chunks, dev):
+    """Operands of one chain tick: blocks read through slots, a padded slot
+    (-1) and a last node without psi; returns the coefficients too."""
+    wire_in = rand_i32(gen, (n + 1, O, S), dev)
+    src = rand_i32(gen, (O, R, S * chunks), dev)
+    slots = rng.integers(0, R, size=(n, max_b)).astype(np.int32)
+    psi, xi = rng.integers(1, 1 << l, size=(2, n, max_b))
+    slots[2, max_b - 1] = -1                # a padded slot
+    psi[2, max_b - 1] = xi[2, max_b - 1] = 0
+    psi[n - 1] = 0                          # the last node: no psi
+    bp_psi, bp_xi = gf.bitplane_table(psi, l), gf.bitplane_table(xi, l)
+    tables = torch.from_numpy(kernel.product_tables(bp_psi, bp_xi, l).view(np.int32)).to(dev)
+    check_table_planes(tables, bp_psi, bp_xi, l, f"l={l} max_b={max_b}")
+    return wire_in, src, slots, psi, xi, tables
+
+
+def check_chain_tick(wire_in, src, slots, tables, l, t, chunks, lo, count, wire_rows,
+                     errs, what) -> None:
+    n, O, S = slots.shape[0], src.shape[0], wire_in.shape[-1]
+    outs = []
+    for fn in (kernel.chain_tick, ref.chain_tick_ref):
+        out = torch.zeros((n, O, S * chunks), dtype=torch.int32, device=src.device)
+        wire_out = torch.zeros((wire_rows, O, S), dtype=torch.int32, device=src.device)
+        fn(wire_in, wire_out, src, slots, out, tables, l, t, chunks, lo, count)
+        outs.append((out, wire_out))
+    torch.cuda.synchronize()
+    for got, want in zip(*outs):
+        check(torch.equal(got, want), f"chain_tick {what}")
+        errs["chain_tick"] = max(errs["chain_tick"], max_abs_err(got, want))
+
+
+def repair_case(rng, gen, l, rows, n, O, S, chunks, dev):
+    """Operands of one repair tick: shards (n + 2, O, Bp) read through a row
+    table that is not the identity; returns the bit-planes too."""
+    wire_in = rand_i32(gen, (n, O, rows, S), dev)
+    shards = rand_i32(gen, (n + 2, O, S * chunks), dev)
+    shard_rows = rng.permutation(n + 2)[:n].astype(np.int32)
+    if np.array_equal(shard_rows, np.arange(n)):
+        shard_rows = shard_rows[::-1].copy()
+    coeffs = rng.integers(1, 1 << l, size=(n, rows))
+    planes = gf.bitplane_table(coeffs, l)
+    tables = torch.from_numpy(kernel.repair_tables(planes, l).view(np.int32)).to(dev)
+    got = ref.repair_table_planes(tables.cpu(), l, rows).numpy()
+    check(np.array_equal(got, planes), f"repair tables' single-bit entries are the "
+                                       f"bit-planes (l={l} rows={rows})")
+    return wire_in, shards, shard_rows, tables, torch.from_numpy(planes.astype(np.int32)).to(dev)
+
+
+def check_repair_tick(wire_in, shards, shard_rows, tables, l, chunks, errs, what,
+                      ticks=((2, True), (4, False))) -> None:
+    """The kernel == the plain version at each (tick, head_zero)."""
+    n, O, rows, S = wire_in.shape
+    for t, head_zero in ticks:
         lo, count = pipeline.active_nodes(t, n, chunks)
         outs = []
         for fn in (kernel.repair_tick, ref.repair_tick_ref):
-            out = torch.zeros((O, rows, S * chunks), dtype=torch.int32, device=dev)
+            out = torch.zeros((O, rows, S * chunks), dtype=torch.int32, device=shards.device)
             wire_out = torch.zeros_like(wire_in)
-            fn(wire_in, wire_out, local, out, bp, l, t, chunks, lo, count)
+            fn(wire_in, wire_out, shards, shard_rows, out, tables, l, t, chunks, lo, count,
+               head_zero)
             outs.append((out, wire_out))
         torch.cuda.synchronize()
-        for got, want in zip(outs[0], outs[1]):
-            check(torch.equal(got, want), f"repair_tick l={l} rows={rows}")
+        for got, want in zip(*outs):
+            check(torch.equal(got, want), f"repair_tick {what} t={t} head_zero={head_zero}")
             errs["repair_tick"] = max(errs["repair_tick"], max_abs_err(got, want))
-        acc = ops.repair_step(wire_in[0], local[0, :, None, :S].contiguous(), bp[0], l)
-        for o in range(O):
-            want = ref.repair_step_ref(wire_in[0, o], local[0, o, :S],
-                                       _coeffs(bp[0]), l)
-            check(torch.equal(acc[o], want), f"repair_step l={l} rows={rows}")
-        wire_out = torch.zeros_like(wire_in)
-        out = torch.zeros((O, rows, S * chunks), dtype=torch.int32, device=dev)
-        ms = median_ms(lambda: kernel.repair_tick(wire_in, wire_out, local, out,
-                                                  bp, l, t, chunks, lo, count), 20)
-        print(f"repair_tick l={l:2d} rows={rows:2d} nodes={count} O={O} S={S}: "
-              f"bit-exact, median {ms:.4f} ms")
 
 
 def check_table_planes(tables: torch.Tensor, bp_psi, bp_xi, l: int, what: str) -> None:
@@ -297,11 +390,21 @@ def report_work(name: str, w: dict, what: str) -> None:
           f"(bytes {bytes_ms:.3f}, int32 ops {ops_ms:.3f}, int8 ops {int8_ms:.3f})")
 
 
-def repair_tick_work(h: int, rows: int, Bp: int) -> tuple[int, int]:
+def repair_tick_work(h: int, rows: int, Bp: int, head_zero: bool) -> tuple[int, int]:
     """(bytes, int32 ops) of one run of repair ticks: per helper and lane,
-    the local lane and `rows` sums in, `rows` sums out; l masks and
-    rows * l multiply + xor."""
-    return h * (2 * rows + 1) * Bp * 4, h * (2 * L + 2 * rows * L) * Bp
+    the shard lane and `rows` sums in, `rows` sums out, less the head
+    node's sums in where the run says they are zero (``head_zero``: the
+    kernel skips that read); l masks and rows * l multiply + xor."""
+    units = h * (2 * rows + 1) - (rows if head_zero else 0)
+    return units * Bp * 4, h * (2 * L + 2 * rows * L) * Bp
+
+
+def check_repair_planes(tables: torch.Tensor, planes: np.ndarray, what: str) -> None:
+    """The plain repair tick reads only the tables' single-bit entries: hold
+    them against the bit-planes the tables were built from."""
+    got = ref.repair_table_planes(tables.cpu(), L, planes.shape[1]).numpy()
+    check(np.array_equal(got, planes),
+          f"repair tables' single-bit entries are the bit-planes ({what})")
 
 
 def encode_work(M: np.ndarray, O: int, Bp: int) -> tuple[int, int]:
@@ -509,12 +612,12 @@ def phase_slice(code, data_np, data_p, data, cw_p, lost, ids, shards, dev) -> di
                       ("star_repair", R, helper_lanes),
                       ("degraded_read", D, shards_p[:, lanes].contiguous())],
         "gf_encode_mxu": [("encode_mxu", code.G, data)],
-        "repair": (R, helper_lanes),
+        "repair": (helpers, R, shards_p),
     }
 
 
-def phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches: dict,
-                 work: dict, errs: dict, dev) -> None:
+def phase_replay(code, cw_p, lost, ids, launches: dict, work: dict, errs: dict,
+                 dev) -> None:
     """The slice's launches of each new kernel, and its repair ticks, through
     the kernel and through its plain version: checked equal and timed."""
     for what, M, x in launches["gf_encode"]:
@@ -544,16 +647,20 @@ def phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches: dict,
         print(f"gf_encode_mxu replay ({what}, {rows}x{xw.shape[0]}, B={B}): {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms")
 
-    R, helper_lanes = launches["repair"]
-    h, Bp = helper_lanes.shape
+    helpers, R, shards_p = launches["repair"]
+    h, Bp = len(helpers), shards_p.shape[-1]
     rows, S = R.shape[0], Bp // NUM_CHUNKS
+    shard_rows, tables = repair.repair_operands(code, lost, ids, dev)
     order = pipeline.position_nodes(h, reverse=True)
-    local = helper_lanes[torch.tensor(order, device=dev)][:, None]
-    bp = torch.from_numpy(chain.column_bitplanes(R, L)[order].astype(np.int32)).to(dev)
+    check_repair_planes(tables, chain.column_bitplanes(R, L)[order], "repair plan")
+    check(list(shard_rows) == [ids.index(helpers[p]) for p in order],
+          "repair row table: each chain position's helper")
+    packed = shards_p[:, None]                   # the survivors' shards, read in place
     outs, timings = {}, {}
 
     def rep_tick(tick, wi, wo, t, lo, count):
-        tick(wi, wo, local, outs[tick], bp, L, t, NUM_CHUNKS, lo, count)
+        tick(wi, wo, packed, shard_rows, outs[tick], tables, L, t, NUM_CHUNKS, lo, count,
+             True)
 
     for tick, reps in ((kernel.repair_tick, 5), (ref.repair_tick_ref, 3)):
         outs[tick] = torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)
@@ -566,8 +673,8 @@ def phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches: dict,
         outs[kernel.repair_tick], outs[ref.repair_tick_ref]))
     repair_w = {"launches": pipeline.num_ticks(NUM_CHUNKS, h), "ms": timings[kernel.repair_tick],
                 "plain_ms": timings[ref.repair_tick_ref], "int8_ops": 0}
-    repair_w["bytes"], repair_w["ops"] = repair_tick_work(h, rows, Bp)
-    report_work("repair_tick", repair_w, "pipelined_repair")
+    repair_w["bytes"], repair_w["ops"] = repair_tick_work(h, rows, Bp, head_zero=True)
+    report_work("repair_tick", repair_w, "pipelined_repair, head row's read skipped")
     add_work(work, "repair_tick", repair_w["launches"], repair_w["ms"],
              repair_w["plain_ms"], repair_w["bytes"], repair_w["ops"])
 
@@ -620,6 +727,7 @@ def main() -> int:
     shards = gf.unpack_u32(cw_p[torch.tensor(ids, device=dev)], L)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    dec_resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rec = chain.pipelined_decode(code, ids, shards, num_chunks=NUM_CHUNKS)
     torch.cuda.synchronize()
@@ -656,7 +764,8 @@ def main() -> int:
           f"({(enc_peak - resident) / 2**30:.3f} GiB above the resident object)")
     print(f"decode: {dec_ms:.3f} ms wall first call, {dec_warm:.3f} ms median of "
           f"5 repeats ({mib / dec_warm * 1e3:.1f} MiB/s of object), repair_tick "
-          f"launches {counts['repair_tick']}, peak {dec_peak / 2**30:.2f} GiB")
+          f"launches {counts['repair_tick']}, peak {dec_peak / 2**30:.2f} GiB "
+          f"({(dec_peak - dec_resident) / 2**30:.3f} GiB above the resident inputs)")
     print(f"checks: decode == data, codeword == plain matvec, "
           f"{len(starts)} windows == host gf_matmul_np")
 
@@ -689,13 +798,24 @@ def main() -> int:
           f"mem MHz, W, C before the replay: {clocks}")
     enc_outs.clear()
 
-    dec_local = gf.pack_u32(shards, L)[:, None]
-    bp = chain.decode_operands(code, ids, dev)
+    chain.decode_tables.cache_clear()
+    t0 = time.perf_counter()
+    chain.decode_tables(code, tuple(ids))
+    dec_table_first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    chain.decode_tables(code, tuple(ids))
+    dec_table_cached_ms = (time.perf_counter() - t0) * 1e3
+    dec_shards = gf.pack_u32(shards, L)[:, None]    # the survivors' shards, read in place
+    dec_tables = chain.decode_operands(code, ids, dev)
+    check_repair_planes(dec_tables, chain.column_bitplanes(code.decode_matrix(ids), L),
+                        "decode")
     n_alive = len(ids)
+    dec_rows = np.arange(n_alive, dtype=np.int32)
     dec_outs = {}
 
     def dec_tick(tick, wi, wo, t, lo, count):
-        tick(wi, wo, dec_local, dec_outs[tick], bp, L, t, NUM_CHUNKS, lo, count)
+        tick(wi, wo, dec_shards, dec_rows, dec_outs[tick], dec_tables, L, t, NUM_CHUNKS, lo,
+             count, True)
 
     for tick, reps in ((kernel.repair_tick, 5), (ref.repair_tick_ref, 3)):
         dec_outs[tick] = torch.empty((1, K, Bp), dtype=torch.int32, device=dev)
@@ -712,8 +832,9 @@ def main() -> int:
     # except for the last node (the encode's wire has n rows), the wire;
     # each slot with nonzero planes costs l masks (shift, and), an xi
     # multiply + xor, and a psi multiply + xor where psi is nonzero.
-    # repair_tick reads the local lane and `rows` sums and writes `rows`
-    # sums, with l masks and rows * l multiply + xor.
+    # repair_tick reads the shard lane and `rows` sums (node 0 none: the
+    # decode says its head row is zero) and writes `rows` sums, with l masks
+    # and rows * l multiply + xor.
     valid = code.chain.block_valid
     psi_nz = code.chain.psi != 0
     enc_bytes = sum(2 + int(valid[i].sum()) + (i + 1 < N) for i in range(N)) * Bp * 4
@@ -725,13 +846,16 @@ def main() -> int:
     add_work(work, "chain_tick", counts["chain_tick"], timings[kernel.chain_tick],
              timings[ref.chain_tick_ref], enc_bytes, enc_ops)
     add_work(work, "repair_tick", counts["repair_tick"], timings[kernel.repair_tick],
-             timings[ref.repair_tick_ref], *repair_tick_work(n_alive, K, Bp))
+             timings[ref.repair_tick_ref], *repair_tick_work(n_alive, K, Bp, head_zero=True))
     print(f"encode operands: product tables {tuple(tables.shape)} built on the host in "
           f"{table_first_ms:.3f} ms at the code's first encode, {table_cached_ms:.4f} ms "
           f"cached; no placement copy: encode peak {enc_peak / 2**30:.3f} GiB, "
           f"{(enc_peak - resident) / 2**30:.3f} GiB above the resident object")
-    for name in ("chain_tick", "repair_tick"):
-        report_work(name, work[name], "main path")
+    print(f"decode operands: product tables {tuple(dec_tables.shape)} built on the host in "
+          f"{dec_table_first_ms:.3f} ms at a survivor set's first decode, "
+          f"{dec_table_cached_ms:.4f} ms cached; the shards are read in place")
+    report_work("chain_tick", work["chain_tick"], "main path")
+    report_work("repair_tick", work["repair_tick"], "main path, head row's read skipped")
 
     # -- phase 5: static-coefficient kernels vs plain versions, small shapes --
     phase_static_kernels(dev, seed, errs)
@@ -745,7 +869,7 @@ def main() -> int:
           f"dynamic shared memory per block")
 
     # -- phase 7: the slice's launches, kernel vs plain version ---------------
-    phase_replay(code, data_p, data, cw_p, lost, ids, shards, launches, work, errs, dev)
+    phase_replay(code, cw_p, lost, ids, launches, work, errs, dev)
 
     rows = []
     for name, w in work.items():

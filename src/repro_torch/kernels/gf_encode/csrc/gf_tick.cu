@@ -46,20 +46,47 @@
 //   left at a launch's tail are the lighter one-block nodes.
 // - The last node's psi is zero and the next tick reads no row past n - 1:
 //   with an n-row wire_out that store is skipped.
+// - Any slot count: max_b of 1 and 2 (RapidRAID's placements) have their
+//   own instances with the slot loop unrolled; a larger max_b takes an
+//   instance that walks the node's slots at run time and stages their
+//   tables in dynamic shared memory, all at once where they fit 48 KB and
+//   one group after another where they do not. A launch takes at most
+//   256 nodes and 512 slots (the slot table travels by value); the host
+//   wrapper splits a larger tick into launches over node sub-ranges.
 //
 // repair_tick replaces repair_step_kernel / _repair_step_body (same file),
-// the decode tick: node i adds sum_b mask_b(local_i) * bp[i, :, b] to the
-// rows partial sums it received; the last node writes them to the output
-// chunk. A multiply by a coefficient c is
-//     c * x = xor_b ((x >> b) & LSB) * (c * alpha^b),
-// where LSB has the lowest bit of every packed word set. The mask lanes are
-// 0 or 1 and c * alpha^b < 2^l, so the 32-bit product never carries from one
-// packed word into the next; it wraps mod 2^32 as it does on the TPU.
-// Bound: memory. Each lane carries `rows` partial sums in and out per node,
-// 8 * rows bytes of wire traffic against 4 bytes of local data. Design:
-// one mask per bit, built once per lane and shared by all rows; the planes
-// sit in shared memory and are read as broadcasts; consecutive threads
-// touch consecutive lanes so every load and store is coalesced.
+// the decode and repair tick: node i adds D[r, i] * shard_i to each of the
+// `rows` partial sums it receives and forwards them to wire row i + 1, or,
+// as the last node n - 1, writes them to chunk t - i of `out`.
+// Bound: memory. Per node and lane it reads its shard lane and `rows` sums
+// and writes `rows` sums, (1 + 2 rows) * 4 bytes: 4.8-5.1 ms of HBM over
+// the (16,11) GF(2^16) decode's 18 ticks. The bit-plane arithmetic of the
+// TPU kernel, l masks and rows * l multiply-xors a lane (384 at rows = 11),
+// would be about 2 ms of INT32 issue beside it, competing with the loads.
+// Design:
+// - Products from packed tables. Per (node, row pack, byte j) the host
+//   builds a 256-entry table of the products of every byte value v by the
+//   pack's coefficients, one 32-bit entry holding every row of the pack:
+//   GF(2^16) packs two rows (D[2p] * (v << 8j) | D[2p+1] * (v << 8j) << 16),
+//   GF(2^8) four (D[4p+r] * v << 8r). A lane costs 4 lookups per row pair
+//   and two byte permutes (GF(2^16)), or 4 lookups per row quad and a 4 x 4
+//   byte transpose in 8 permutes (GF(2^8)). The tables are built once per
+//   survivor set or repair plan, from the bit-planes by linearity; nothing
+//   is compiled per code or per survivor set.
+// - Any rows. A block stages its node's tables in shared memory (1 KB a
+//   row at GF(2^16), 256 B at GF(2^8)), all at once where they fit the
+//   227 KB a block may opt in to, else in stages of whole row groups, one
+//   after another, rereading the shard lane for each stage. Within a step
+//   the rows go in groups of kGroupRows held in registers, unrolled.
+// - Memory in flight: 16-byte lanes wherever the chunk's rows are 16-byte
+//   aligned, and the shard load and every wire load of a group issued
+//   before the first lookup.
+// - The survivors' shards are read in place: node i's shard is row
+//   shard_rows[i] of the callers' (R, O, Bp) shards; the row table comes by
+//   value in the kernel's parameters.
+// - Node 0 of a pipelined run reads wire row 0, which the pipeline never
+//   writes: with head_zero the kernel starts node 0 from zero sums and
+//   skips that read. Without it, row 0 is read like any other.
 
 #include <cuda_runtime.h>
 
@@ -68,19 +95,56 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTilesPerBlock = 2;      // grid-stride steps a block's staging serves
+constexpr int kMaxTickNodes = 256;     // active nodes one launch takes
+constexpr int kMaxTickSlots = 512;     // replica slots one chain_tick launch takes
+constexpr int kStaticSmem = 48 * 1024;    // shared memory a block has without opting in
+constexpr int kMaxSmem = 227 * 1024;      // what a block may opt in to on the H100
+
+// ---------------------------------------------------------------------------
+// shared helpers
+// ---------------------------------------------------------------------------
+
+template <int VEC>
+__device__ __forceinline__ void load_lanes(const uint32_t* p, uint32_t (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+  } else {
+    r[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_lanes(uint32_t* p, const uint32_t (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
+  } else {
+    *p = r[0];
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// (lane tiles, objects, nodes): each block walks kTilesPerBlock steps of
+// kThreads x VEC lanes
+dim3 tick_grid(long long steps, int O, int node_count) {
+  const long long tile = static_cast<long long>(kThreads) * kTilesPerBlock;
+  return dim3(static_cast<unsigned>((steps + tile - 1) / tile), static_cast<unsigned>(O),
+              static_cast<unsigned>(node_count));
+}
 
 // ---------------------------------------------------------------------------
 // chain_tick
 // ---------------------------------------------------------------------------
 
-constexpr int kTilesPerBlock = 2;   // grid-stride steps a block's staging serves
-constexpr int kMaxTickNodes = 256;  // active nodes one launch takes
-
 // The launch's active nodes, two-block nodes first, and their replica
 // slots: slot[z * max_b + s] is a block of src or -1. Passed by value.
 struct TickNodes {
   int node[kMaxTickNodes];
-  int slot[2 * kMaxTickNodes];
+  int slot[kMaxTickSlots];
 };
 
 // words of one slot's tables: a 256-entry table per byte of a word
@@ -112,25 +176,6 @@ __device__ __forceinline__ void split_products(const uint32_t (&e)[32 / L],
     const uint32_t hi = __byte_perm(e[2], e[3], 0x6240);
     kept = __byte_perm(lo, hi, 0x5410);
     fwd = __byte_perm(lo, hi, 0x7632);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_lanes(const uint32_t* p, uint32_t (&r)[VEC]) {
-  if constexpr (VEC == 4) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
-  } else {
-    r[0] = *p;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_lanes(uint32_t* p, const uint32_t (&r)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(r[0], r[1], r[2], r[3]);
-  } else {
-    *p = r[0];
   }
 }
 
@@ -197,124 +242,275 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The same tick for any slot count max_b, given at run time: the node's
+// slots are walked in turn, their tables staged `group` slots at a time in
+// dynamic shared memory (all of them once, before the first step, where
+// group >= max_b). Tables are (n, max_b, L/8, 256).
+template <int L, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    chain_tick_slots_kernel(const uint32_t* __restrict__ wire_in,
+                            uint32_t* __restrict__ wire_out,
+                            const uint32_t* __restrict__ src,
+                            uint32_t* __restrict__ out,
+                            const uint32_t* __restrict__ tables, const TickNodes nodes,
+                            int max_b, int group, int O, int R, long long Bp,
+                            long long S, int t, int fwd_rows) {
+  extern __shared__ uint32_t s_tab[];  // `group` slots' tables
+  const int z = static_cast<int>(blockIdx.z);
+  const int i = nodes.node[z];
+  const int o = static_cast<int>(blockIdx.y);
+  const int ch = t - i;
+  const uint32_t* tab = tables + static_cast<size_t>(i) * max_b * kSlotWords<L>;
+  const bool once = group >= max_b;
+  if (once) {
+    for (int e = threadIdx.x; e < max_b * kSlotWords<L>; e += kThreads) s_tab[e] = tab[e];
+    __syncthreads();
+  }
+  const size_t row = static_cast<size_t>(i) * O + o;
+  const uint32_t* wi = wire_in + row * S;
+  uint32_t* wo = i + 1 < fwd_rows ? wire_out + (row + O) * S : nullptr;
+  uint32_t* dst = out + row * Bp + static_cast<size_t>(ch) * S;
+  const uint32_t* blocks = src + static_cast<size_t>(o) * R * Bp + static_cast<size_t>(ch) * S;
+  const long long steps = S / VEC;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  // the whole block walks the same steps, so a group's staging may sit
+  // inside the loop
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads; base < steps;
+       base += stride) {
+    const long long j = base + threadIdx.x;
+    const bool active = j < steps;
+    uint32_t x[VEC] = {};
+    if (active) load_lanes<VEC>(wi + j * VEC, x);
+    uint32_t e[VEC][32 / L] = {};
+    for (int g0 = 0; g0 < max_b; g0 += group) {
+      const int g1 = min(g0 + group, max_b);
+      if (!once) {
+        __syncthreads();  // every thread is done with the previous group's tables
+        for (int w = threadIdx.x; w < (g1 - g0) * kSlotWords<L>; w += kThreads)
+          s_tab[w] = tab[static_cast<size_t>(g0) * kSlotWords<L> + w];
+        __syncthreads();
+      }
+      for (int s = g0; s < g1; ++s) {
+        const int b = nodes.slot[z * max_b + s];
+        if (b < 0 || !active) continue;
+        uint32_t d[VEC];
+        load_lanes<VEC>(blocks + static_cast<size_t>(b) * Bp + j * VEC, d);
+#pragma unroll
+        for (int r = 0; r < VEC; ++r)
+          add_products<L>(s_tab + (s - g0) * kSlotWords<L>, d[r], e[r]);
+      }
+    }
+    if (!active) continue;
+    uint32_t c[VEC], xo[VEC];
+#pragma unroll
+    for (int r = 0; r < VEC; ++r) {
+      uint32_t kept, fwd;
+      split_products<L>(e[r], kept, fwd);
+      c[r] = x[r] ^ kept;
+      xo[r] = x[r] ^ fwd;
+    }
+    store_lanes<VEC>(dst + j * VEC, c);
+    if (wo) store_lanes<VEC>(wo + j * VEC, xo);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // repair_tick
 // ---------------------------------------------------------------------------
 
-// Lane tiles per (node, object): beyond this the grid-stride loop takes over.
-constexpr long long kMaxTiles = 1024;
-
+// rows whose products one table entry packs: two 16-bit or four 8-bit words
 template <int L>
-struct Lsb;
-template <>
-struct Lsb<8> {
-  static constexpr uint32_t value = 0x01010101u;
-};
-template <>
-struct Lsb<16> {
-  static constexpr uint32_t value = 0x00010001u;
+constexpr int kPackRows = 32 / L;
+// words of one row pack's tables: a 256-entry table per byte of a word
+template <int L>
+constexpr int kPackWords = L / 8 * 256;
+// rows a step carries in registers, unrolled: the (16,11) decode's 11
+// rows in one group
+constexpr int kGroupRows = 12;
+template <int L>
+constexpr int kGroupPacks = kGroupRows / kPackRows<L>;
+
+// The shard row of each node of the launch (node_lo + z). Passed by value.
+struct RepairNodes {
+  int shard[kMaxTickNodes];
 };
 
-// wire_in / wire_out (n, O, rows, S), local (n, O, Bp), out (O, rows, Bp),
-// bp (n, rows, L). Node n - 1 writes `out` instead of the wire.
-template <int L>
+// acc[r][w] ^= the products of lane v[w] with row r of the group, from the
+// tables of the group's first `packs` row packs.
+template <int L, int VEC>
+__device__ __forceinline__ void add_row_products(const uint32_t* s_grp, int packs,
+                                                 const uint32_t (&v)[VEC],
+                                                 uint32_t (&acc)[kGroupRows][VEC]) {
+#pragma unroll
+  for (int w = 0; w < VEC; ++w) {
+    const uint32_t x = v[w];
+#pragma unroll
+    for (int q = 0; q < kGroupPacks<L>; ++q) {
+      if (q >= packs) break;
+      const uint32_t* T = s_grp + q * kPackWords<L>;
+      if constexpr (L == 16) {
+        // e0 / e1: (row 2q, row 2q + 1) products of word 0 / word 1
+        const uint32_t e0 = T[x & 255u] ^ T[256 + ((x >> 8) & 255u)];
+        const uint32_t e1 = T[(x >> 16) & 255u] ^ T[256 + (x >> 24)];
+        acc[2 * q][w] ^= __byte_perm(e0, e1, 0x5410);
+        acc[2 * q + 1][w] ^= __byte_perm(e0, e1, 0x7632);
+      } else {
+        // e_m: byte r is row 4q + r's product of word m; transpose the bytes
+        const uint32_t e0 = T[x & 255u], e1 = T[(x >> 8) & 255u];
+        const uint32_t e2 = T[(x >> 16) & 255u], e3 = T[x >> 24];
+        const uint32_t a = __byte_perm(e0, e1, 0x5140), b = __byte_perm(e0, e1, 0x7362);
+        const uint32_t c = __byte_perm(e2, e3, 0x5140), d = __byte_perm(e2, e3, 0x7362);
+        acc[4 * q][w] ^= __byte_perm(a, c, 0x5410);
+        acc[4 * q + 1][w] ^= __byte_perm(a, c, 0x7632);
+        acc[4 * q + 2][w] ^= __byte_perm(b, d, 0x5410);
+        acc[4 * q + 3][w] ^= __byte_perm(b, d, 0x7632);
+      }
+    }
+  }
+}
+
+// wire_in / wire_out (n, O, rows, S), shards (R, O, Bp), out (O, rows, Bp),
+// tables (n, packs, L/8, 256). Node n - 1 writes `out` instead of the wire.
+// The tables are staged `stage` packs at a time (a multiple of
+// kGroupPacks, or all of them).
+template <int L, int VEC>
 __global__ void __launch_bounds__(kThreads)
     repair_tick_kernel(const uint32_t* __restrict__ wire_in,
                        uint32_t* __restrict__ wire_out,
-                       const uint32_t* __restrict__ local,
+                       const uint32_t* __restrict__ shards,
                        uint32_t* __restrict__ out,
-                       const uint32_t* __restrict__ bp, int n, int O, int rows,
-                       long long Bp, long long S, int t, int num_chunks,
-                       int node_lo) {
-  extern __shared__ uint32_t s_bp[];  // (rows, L)
-  const int i = node_lo + static_cast<int>(blockIdx.z);
+                       const uint32_t* __restrict__ tables, const RepairNodes nodes,
+                       int n, int O, int rows, int stage, long long Bp, long long S,
+                       int t, int node_lo, int head_zero) {
+  extern __shared__ uint32_t s_tab[];  // `stage` packs' tables
+  constexpr int P = kPackRows<L>;
+  const int z = static_cast<int>(blockIdx.z);
+  const int i = node_lo + z;
   const int o = static_cast<int>(blockIdx.y);
   const int ch = t - i;
-  for (int j = threadIdx.x; j < rows * L; j += blockDim.x)
-    s_bp[j] = bp[static_cast<size_t>(i) * rows * L + j];
-  __syncthreads();
-  if (ch < 0 || ch >= num_chunks) return;  // whole block: no chunk this tick
-
-  const uint32_t lsb = Lsb<L>::value;
-  const size_t row = static_cast<size_t>(i) * O + o;
-  const uint32_t* wi = wire_in + row * rows * S;
-  const uint32_t* loc = local + row * Bp + static_cast<size_t>(ch) * S;
+  const int packs = (rows + P - 1) / P;
+  const uint32_t* tab = tables + static_cast<size_t>(i) * packs * kPackWords<L>;
+  const uint32_t* loc = shards + (static_cast<size_t>(nodes.shard[z]) * O + o) * Bp +
+                        static_cast<size_t>(ch) * S;
+  const bool read_in = !(head_zero && i == 0);  // uniform across the block
+  const uint32_t* wi = wire_in + (static_cast<size_t>(i) * O + o) * rows * S;
   uint32_t* dst;
   long long dst_stride;
   if (i == n - 1) {
     dst = out + static_cast<size_t>(o) * rows * Bp + static_cast<size_t>(ch) * S;
     dst_stride = Bp;
   } else {
-    dst = wire_out + (row + O) * rows * S;  // row i + 1, same object
+    dst = wire_out + (static_cast<size_t>(i + 1) * O + o) * rows * S;
     dst_stride = S;
   }
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       j < S; j += stride) {
-    const uint32_t v = loc[j];
-    uint32_t m[L];
+  const long long steps = S / VEC;  // VEC divides S (checked by the launcher)
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (int p0 = 0; p0 < packs; p0 += stage) {
+    const int np = min(stage, packs - p0);
+    if (p0) __syncthreads();  // every thread is done with the previous stage
+    for (int e = threadIdx.x; e < np * kPackWords<L>; e += kThreads)
+      s_tab[e] = tab[static_cast<size_t>(p0) * kPackWords<L> + e];
+    __syncthreads();
+    for (long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+         j < steps; j += stride) {
+      uint32_t v[VEC];
+      load_lanes<VEC>(loc + j * VEC, v);
+      for (int g = 0; g < np; g += kGroupPacks<L>) {
+        const int gp = min(kGroupPacks<L>, np - g);
+        const int r0 = (p0 + g) * P;           // the group's first row
+        const int nr = min(gp * P, rows - r0);  // and its row count
+        // the shard load and every wire load of the group before the lookups
+        uint32_t acc[kGroupRows][VEC];
 #pragma unroll
-    for (int b = 0; b < L; ++b) m[b] = (v >> b) & lsb;  // shared by all rows
-    for (int r = 0; r < rows; ++r) {
-      uint32_t acc = wi[static_cast<size_t>(r) * S + j];
-      const uint32_t* c = s_bp + r * L;
+        for (int r = 0; r < kGroupRows; ++r) {
+          if (r < nr && read_in) {
+            load_lanes<VEC>(wi + (r0 + r) * S + j * VEC, acc[r]);
+          } else {
 #pragma unroll
-      for (int b = 0; b < L; ++b) acc ^= m[b] * c[b];
-      dst[static_cast<size_t>(r) * dst_stride + j] = acc;
+            for (int w = 0; w < VEC; ++w) acc[r][w] = 0;
+          }
+        }
+        add_row_products<L, VEC>(s_tab + g * kPackWords<L>, gp, v, acc);
+#pragma unroll
+        for (int r = 0; r < kGroupRows; ++r)
+          if (r < nr) store_lanes<VEC>(dst + (r0 + r) * dst_stride + j * VEC, acc[r]);
+      }
     }
   }
 }
 
-dim3 tick_grid(long long S, int O, int node_count) {
-  long long tiles = (S + kThreads - 1) / kThreads;
-  if (tiles > kMaxTiles) tiles = kMaxTiles;
-  return dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(O),
-              static_cast<unsigned>(node_count));
-}
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
 
 template <int L, int MAXB, int VEC>
 int launch_chain_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* src,
                       uint32_t* out, const uint32_t* tab, const TickNodes& nodes,
-                      int O, int R, long long Bp, long long S, int t,
+                      int max_b, int O, int R, long long Bp, long long S, int t,
                       int node_count, int fwd_rows, cudaStream_t st) {
-  const long long tile = static_cast<long long>(kThreads) * kTilesPerBlock;
-  const long long tiles = (S / VEC + tile - 1) / tile;
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(O),
-                  static_cast<unsigned>(node_count));
-  chain_tick_kernel<L, MAXB, VEC><<<grid, kThreads, 0, st>>>(
-      wi, wo, src, out, tab, nodes, O, R, Bp, S, t, fwd_rows);
+  const dim3 grid = tick_grid(S / VEC, O, node_count);
+  if constexpr (MAXB > 0) {
+    chain_tick_kernel<L, MAXB, VEC><<<grid, kThreads, 0, st>>>(
+        wi, wo, src, out, tab, nodes, O, R, Bp, S, t, fwd_rows);
+  } else {
+    // stage every slot where they fit 48 KB, else the most that do, in turn
+    constexpr int slot_bytes = kSlotWords<L> * 4;
+    const int group = max_b * slot_bytes <= kStaticSmem ? max_b : kStaticSmem / slot_bytes;
+    chain_tick_slots_kernel<L, VEC><<<grid, kThreads, group * slot_bytes, st>>>(
+        wi, wo, src, out, tab, nodes, max_b, group, O, R, Bp, S, t, fwd_rows);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int L, int MAXB>
 int dispatch_chain_tick(bool vec4, const uint32_t* wi, uint32_t* wo,
                         const uint32_t* src, uint32_t* out, const uint32_t* tab,
-                        const TickNodes& nodes, int O, int R, long long Bp,
+                        const TickNodes& nodes, int max_b, int O, int R, long long Bp,
                         long long S, int t, int node_count, int fwd_rows,
                         cudaStream_t st) {
-#define GF_CHAIN_ARGS wi, wo, src, out, tab, nodes, O, R, Bp, S, t, node_count, fwd_rows, st
+#define GF_CHAIN_ARGS wi, wo, src, out, tab, nodes, max_b, O, R, Bp, S, t, node_count, fwd_rows, st
   return vec4 ? launch_chain_tick<L, MAXB, 4>(GF_CHAIN_ARGS)
               : launch_chain_tick<L, MAXB, 1>(GF_CHAIN_ARGS);
 #undef GF_CHAIN_ARGS
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+template <int L, int VEC>
+int launch_repair_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* shards,
+                       uint32_t* out, const uint32_t* tab, const RepairNodes& nodes,
+                       int n, int O, int rows, long long Bp, long long S, int t,
+                       int node_lo, int node_count, int head_zero, cudaStream_t st) {
+  constexpr int pack_bytes = kPackWords<L> * 4;
+  const int packs = (rows + kPackRows<L> - 1) / kPackRows<L>;
+  // every pack's tables at once where they fit a block, else stages of
+  // whole row groups
+  int stage = packs;
+  if (static_cast<long long>(packs) * pack_bytes > kMaxSmem)
+    stage = kMaxSmem / pack_bytes / kGroupPacks<L> * kGroupPacks<L>;
+  const int smem = stage * pack_bytes;
+  if (smem > kStaticSmem) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        repair_tick_kernel<L, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const dim3 grid = tick_grid(S / VEC, O, node_count);
+  repair_tick_kernel<L, VEC><<<grid, kThreads, smem, st>>>(
+      wi, wo, shards, out, tab, nodes, n, O, rows, stage, Bp, S, t, node_lo, head_zero);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers of
-// contiguous int32 tensors, except `slots`, the host (n, max_b) slot table;
-// the caller has checked shapes and slot values. Each function launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// contiguous int32 tensors, except `slots` and `shard_rows`, host tables;
+// the caller has checked shapes and table values. Each function launches
+// on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int gf_chain_tick(const void* wire_in, void* wire_out,
                              const void* src, void* out, const void* tables,
                              const int* slots, int l, int max_b, int O, int R, long long Bp, long long S, int t,
                              int node_lo, int node_count, int fwd_rows,
                              void* stream) {
-  if (node_count < 1 || node_count > kMaxTickNodes || max_b < 1 || max_b > 2)
+  if (node_count < 1 || node_count > kMaxTickNodes || max_b < 1 ||
+      node_count * max_b > kMaxTickSlots)
     return static_cast<int>(cudaErrorInvalidValue);
   // the active nodes by falling block count (two-block nodes first), each
   // with its slots
@@ -339,37 +535,39 @@ extern "C" int gf_chain_tick(const void* wire_in, void* wire_out,
   auto sr = static_cast<const uint32_t*>(src);
   auto ou = static_cast<uint32_t*>(out);
   auto tb = static_cast<const uint32_t*>(tables);
-#define GF_CHAIN_ARGS vec4, wi, wo, sr, ou, tb, tn, O, R, Bp, S, t, node_count, fwd_rows, st
+#define GF_CHAIN_ARGS vec4, wi, wo, sr, ou, tb, tn, max_b, O, R, Bp, S, t, node_count, fwd_rows, st
   if (l == 8 && max_b == 1) return dispatch_chain_tick<8, 1>(GF_CHAIN_ARGS);
   if (l == 8 && max_b == 2) return dispatch_chain_tick<8, 2>(GF_CHAIN_ARGS);
+  if (l == 8) return dispatch_chain_tick<8, 0>(GF_CHAIN_ARGS);  // any max_b
   if (l == 16 && max_b == 1) return dispatch_chain_tick<16, 1>(GF_CHAIN_ARGS);
   if (l == 16 && max_b == 2) return dispatch_chain_tick<16, 2>(GF_CHAIN_ARGS);
+  if (l == 16) return dispatch_chain_tick<16, 0>(GF_CHAIN_ARGS);
 #undef GF_CHAIN_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int gf_repair_tick(const void* wire_in, void* wire_out,
-                              const void* local, void* out, const void* bp,
-                              int l, int n, int O, int rows, long long Bp,
-                              long long S, int t, int num_chunks, int node_lo,
-                              int node_count, void* stream) {
-  const dim3 grid = tick_grid(S, O, node_count);
-  const dim3 block(kThreads);
-  const size_t smem = static_cast<size_t>(rows) * l * sizeof(uint32_t);
+                              const void* shards, void* out, const void* tables,
+                              const int* shard_rows, int l, int n, int O, int rows,
+                              long long Bp, long long S, int t, int node_lo,
+                              int node_count, int head_zero, void* stream) {
+  if (node_count < 1 || node_count > kMaxTickNodes || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RepairNodes rn;
+  for (int z = 0; z < node_count; ++z) rn.shard[z] = shard_rows[node_lo + z];
+  const bool vec4 = S % 4 == 0 && Bp % 4 == 0 && aligned16(wire_in) &&
+                    aligned16(wire_out) && aligned16(shards) && aligned16(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto wi = static_cast<const uint32_t*>(wire_in);
   auto wo = static_cast<uint32_t*>(wire_out);
-  auto lo = static_cast<const uint32_t*>(local);
+  auto sh = static_cast<const uint32_t*>(shards);
   auto ou = static_cast<uint32_t*>(out);
-  auto b = static_cast<const uint32_t*>(bp);
-  if (l == 8) {
-    repair_tick_kernel<8><<<grid, block, smem, st>>>(
-        wi, wo, lo, ou, b, n, O, rows, Bp, S, t, num_chunks, node_lo);
-  } else if (l == 16) {
-    repair_tick_kernel<16><<<grid, block, smem, st>>>(
-        wi, wo, lo, ou, b, n, O, rows, Bp, S, t, num_chunks, node_lo);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  auto tb = static_cast<const uint32_t*>(tables);
+#define GF_REPAIR_ARGS wi, wo, sh, ou, tb, rn, n, O, rows, Bp, S, t, node_lo, node_count, head_zero, st
+  if (l == 8) return vec4 ? launch_repair_tick<8, 4>(GF_REPAIR_ARGS)
+                          : launch_repair_tick<8, 1>(GF_REPAIR_ARGS);
+  if (l == 16) return vec4 ? launch_repair_tick<16, 4>(GF_REPAIR_ARGS)
+                           : launch_repair_tick<16, 1>(GF_REPAIR_ARGS);
+#undef GF_REPAIR_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -50,9 +50,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared", "-lcuda")   # the driver API: TMA descriptors, per-matrix modules
 SUPPORTED_L = (8, 16)
-MAX_B = (1, 2)
 _MAX_GRID_YZ = 65535
-_MAX_STATIC_SMEM = 48 * 1024
 
 _lib: ctypes.CDLL | None = None
 
@@ -113,7 +111,7 @@ def load_library() -> ctypes.CDLL:
     lib.gf_chain_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                   i64, i64, i32, i32, i32, i32, vp]
     lib.gf_chain_tick.restype = i32
-    lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+    lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                    i64, i64, i32, i32, i32, i32, vp]
     lib.gf_repair_tick.restype = i32
     lib.gf_encode_mxu.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
@@ -166,8 +164,8 @@ def _check_tick(name: str, l: int, t: int, num_chunks: int, node_lo: int,
     if not (0 <= t - (node_lo + node_count - 1) and t - node_lo < num_chunks):
         raise ValueError(f"{name}: a node in [{node_lo}, {node_lo + node_count}) "
                          f"has no chunk at tick {t} of {num_chunks} chunks")
-    if O < 1 or O > _MAX_GRID_YZ or node_count > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: {O} objects x {node_count} nodes exceed the grid")
+    if O < 1 or O > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: {O} objects exceed the grid")
 
 
 def _raise_on(name: str, rc: int) -> None:
@@ -176,7 +174,28 @@ def _raise_on(name: str, rc: int) -> None:
 
 
 TABLE_BYTES = 256             # byte values a product table holds
-_MAX_TICK_NODES = 256         # active nodes one chain_tick launch takes
+MAX_TICK_NODES = 256          # active nodes one tick launch takes
+MAX_TICK_SLOTS = 512          # replica slots one chain_tick launch takes
+
+
+def _byte_tables(planes: np.ndarray, l: int) -> np.ndarray:
+    """(..., l) uint32 packed planes -> (..., l // 8, 256) uint32: entry v of
+    table j is the xor of planes 8j + b over the set bits b of v, so a
+    word's products are the xor of its bytes' entries."""
+    planes = planes.astype(np.uint32).reshape(planes.shape[:-1] + (l // 8, 8))
+    bits = ((np.arange(TABLE_BYTES)[:, None] >> np.arange(8)) & 1).astype(np.uint32)
+    return np.bitwise_xor.reduce(planes[..., None, :] * bits, axis=-1)
+
+
+def _field_planes(name: str, l: int, *planes) -> list[np.ndarray]:
+    """The bit-planes as int64, checked to be (..., l) words of GF(2^l)."""
+    out = [np.asarray(p).astype(np.int64) for p in planes]
+    if l not in SUPPORTED_L or any(p.shape[-1:] != (l,) for p in out):
+        raise ValueError(f"{name}: planes {[p.shape for p in out]} must be "
+                         f"(..., {l}) for a supported field")
+    if any(p.min(initial=0) < 0 or p.max(initial=0) >= 1 << l for p in out):
+        raise ValueError(f"{name}: planes must be words of GF(2^{l})")
+    return out
 
 
 def product_tables(bp_psi, bp_xi, l: int) -> np.ndarray:
@@ -189,29 +208,67 @@ def product_tables(bp_psi, bp_xi, l: int) -> np.ndarray:
     forwarded one in the high half. Entry v is the xor of the planes of v's
     set bits, so the tables compute exactly what the planes do.
     """
-    psi = np.asarray(bp_psi).astype(np.int64)
-    xi = np.asarray(bp_xi).astype(np.int64)
-    if l not in SUPPORTED_L or psi.shape != xi.shape or psi.shape[-1:] != (l,):
-        raise ValueError(f"product_tables: planes {psi.shape}, {xi.shape} must be "
-                         f"(..., {l}) for a supported field")
-    if psi.min(initial=0) < 0 or xi.min(initial=0) < 0 or max(
-            psi.max(initial=0), xi.max(initial=0)) >= 1 << l:
-        raise ValueError(f"product_tables: planes must be words of GF(2^{l})")
-    planes = (xi | psi << 16).astype(np.uint32).reshape(psi.shape[:-1] + (l // 8, 8))
-    bits = ((np.arange(TABLE_BYTES)[:, None] >> np.arange(8)) & 1).astype(np.uint32)
-    return np.bitwise_xor.reduce(planes[..., None, :] * bits, axis=-1)
+    psi, xi = _field_planes("product_tables", l, bp_psi, bp_xi)
+    if psi.shape != xi.shape:
+        raise ValueError(f"product_tables: planes {psi.shape}, {xi.shape} differ")
+    return _byte_tables(xi | psi << 16, l)
+
+
+def repair_packs(rows: int, l: int) -> int:
+    """Row packs of ``repair_tables``: 32 // l rows share a table entry."""
+    return -(-rows // (32 // l))
+
+
+def repair_tables(bp, l: int) -> np.ndarray:
+    """The ``repair_tick`` operand: each node's products, from its bit-planes.
+
+    ``bp`` (..., rows, l) bit-plane constants of a node's coefficients
+    (``D[r] * alpha^b``) -> (..., repair_packs(rows, l), l // 8, 256)
+    uint32. One entry packs the products of ``32 // l`` rows: at GF(2^16)
+    ``out[..., p, j, v] = D[2p] * (v << 8j) | D[2p+1] * (v << 8j) << 16``,
+    at GF(2^8) ``out[..., p, 0, v] = xor_r D[4p+r] * v << 8r``; the rows
+    past ``rows`` in the last pack are zero. Built from the planes by
+    linearity, as ``product_tables`` is.
+    """
+    (bp,) = _field_planes("repair_tables", l, bp)
+    if bp.ndim < 2 or bp.shape[-2] < 1:
+        raise ValueError(f"repair_tables: planes {bp.shape} must be (..., rows, l)")
+    per, rows = 32 // l, bp.shape[-2]
+    packs = repair_packs(rows, l)
+    padded = np.zeros(bp.shape[:-2] + (packs * per, l), np.int64)
+    padded[..., :rows, :] = bp
+    padded = padded.reshape(bp.shape[:-2] + (packs, per, l)) << (l * np.arange(per))[:, None]
+    return _byte_tables(np.bitwise_or.reduce(padded, axis=-2), l)
 
 
 def _check_slots(name: str, slots, n_blocks: int) -> np.ndarray:
     """The slot table as (n, max_b) int32 on the host, each a block index in
     [0, n_blocks) or -1 (no block)."""
     slots = np.asarray(slots)
-    if slots.ndim != 2 or slots.shape[1] not in MAX_B or slots.dtype.kind not in "iu":
+    if (slots.ndim != 2 or not 1 <= slots.shape[1] <= MAX_TICK_SLOTS
+            or slots.dtype.kind not in "iu"):
         raise ValueError(f"{name}: slots {slots.shape} must be (n, max_b) integers, "
-                         f"max_b in {MAX_B}")
+                         f"1 <= max_b <= {MAX_TICK_SLOTS}")
     if slots.size and (slots.min() < -1 or slots.max() >= n_blocks):
         raise ValueError(f"{name}: slots must be block indices below {n_blocks} or -1")
     return np.ascontiguousarray(slots, dtype=np.int32)
+
+
+def _check_shard_rows(name: str, shard_rows, n_rows: int) -> np.ndarray:
+    """The row table as (n,) int32 on the host, each a row in [0, n_rows)."""
+    rows = np.asarray(shard_rows)
+    if rows.ndim != 1 or rows.size < 1 or rows.dtype.kind not in "iu":
+        raise ValueError(f"{name}: shard_rows {rows.shape} must be (n,) integers")
+    if rows.min() < 0 or rows.max() >= n_rows:
+        raise ValueError(f"{name}: shard_rows must be rows below {n_rows}")
+    return np.ascontiguousarray(rows, dtype=np.int32)
+
+
+def launch_ranges(node_lo: int, node_count: int, per: int) -> list[tuple[int, int]]:
+    """The (first node, node count) of each launch of a tick over
+    [node_lo, node_lo + node_count), at most ``per`` nodes a launch."""
+    end = node_lo + node_count
+    return [(lo, min(per, end - lo)) for lo in range(node_lo, end, per)]
 
 
 def chain_tick(wire_in: torch.Tensor, wire_out: torch.Tensor, src: torch.Tensor,
@@ -221,13 +278,17 @@ def chain_tick(wire_in: torch.Tensor, wire_out: torch.Tensor, src: torch.Tensor,
 
     Shapes: ``src`` (O, R, Bp) the objects' packed blocks, read in place;
     ``slots`` (n, max_b) host integers, node i's slot s holding block
-    ``slots[i, s]`` or nothing (-1); ``out`` (n, O, Bp); ``tables``
-    (n, max_b, l // 8, 256) from ``product_tables``; ``wire_in``
-    (>= node_lo + node_count, O, S) with S * num_chunks == Bp; ``wire_out``
-    (n or n + 1, O, S). Node i of [node_lo, node_lo + node_count) reads
-    ``wire_in[i]`` and chunk t - i of its blocks, writes that chunk of
-    ``out[i]`` and, where that row exists, ``wire_out[i + 1]``: an n-row
-    ``wire_out`` drops the last node's wire, which no node reads.
+    ``slots[i, s]`` or nothing (-1), any max_b up to 512; ``out`` (n, O,
+    Bp); ``tables`` (n, max_b, l // 8, 256) from ``product_tables``;
+    ``wire_in`` (>= node_lo + node_count, O, S) with S * num_chunks == Bp;
+    ``wire_out`` (n or n + 1, O, S). Node i of [node_lo, node_lo +
+    node_count) reads ``wire_in[i]`` and chunk t - i of its blocks, writes
+    that chunk of ``out[i]`` and, where that row exists, ``wire_out[i + 1]``:
+    an n-row ``wire_out`` drops the last node's wire, which no node reads.
+
+    A launch takes at most ``min(256, 512 // max_b)`` nodes, since the slot
+    table travels in its parameters; a tick over more nodes is several
+    launches over node sub-ranges, and ``chain_tick.launches`` counts each.
     """
     device = _check_tensors("chain_tick", wire_in=wire_in, wire_out=wire_out,
                             src=src, out=out, tables=tables)
@@ -250,65 +311,75 @@ def chain_tick(wire_in: torch.Tensor, wire_out: torch.Tensor, src: torch.Tensor,
                          f"{tuple(wire_out.shape)} do not fit nodes < {last} of {n}")
     if wire_in.data_ptr() == wire_out.data_ptr():
         raise ValueError("chain_tick: wire_in and wire_out must not alias")
-    if node_count > _MAX_TICK_NODES:
-        raise ValueError(f"chain_tick: {node_count} active nodes exceed "
-                         f"{_MAX_TICK_NODES} per launch")
     lib = load_library()
+    per = min(MAX_TICK_NODES, MAX_TICK_SLOTS // max_b)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.gf_chain_tick(wire_in.data_ptr(), wire_out.data_ptr(),
-                               src.data_ptr(), out.data_ptr(), tables.data_ptr(),
-                               slots.ctypes.data, l, max_b, O, R, Bp, S, t,
-                               node_lo, node_count, wire_out.shape[0], stream)
-    _raise_on("chain_tick", rc)
-    chain_tick.launches += 1
+        for lo, count in launch_ranges(node_lo, node_count, per):
+            rc = lib.gf_chain_tick(wire_in.data_ptr(), wire_out.data_ptr(),
+                                   src.data_ptr(), out.data_ptr(), tables.data_ptr(),
+                                   slots.ctypes.data, l, max_b, O, R, Bp, S, t,
+                                   lo, count, wire_out.shape[0], stream)
+            _raise_on("chain_tick", rc)
+            chain_tick.launches += 1
 
 
 chain_tick.launches = 0
 
 
 def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
-                local: torch.Tensor, out: torch.Tensor, bp: torch.Tensor,
-                l: int, t: int, num_chunks: int, node_lo: int,
-                node_count: int) -> None:
-    """One decode tick on the card (replaces ``repair_step_kernel``).
+                shards: torch.Tensor, shard_rows, out: torch.Tensor,
+                tables: torch.Tensor, l: int, t: int, num_chunks: int,
+                node_lo: int, node_count: int, head_zero: bool = False) -> None:
+    """One decode or repair tick on the card (replaces ``repair_step_kernel``).
 
-    Shapes: ``local`` (n, O, Bp), ``bp`` (n, rows, l), ``wire_in`` and
-    ``wire_out`` (n, O, rows, S), ``out`` (O, rows, Bp) with S * num_chunks
-    == Bp. Node i adds its term to the partial sums in ``wire_in[i]`` and
-    writes them to ``wire_out[i + 1]``, or, for the last node n - 1, to
-    chunk t - i of ``out``.
+    Shapes: ``shards`` (R, O, Bp) the callers' packed shards, read in place;
+    ``shard_rows`` (n,) host integers, node i's shard being row
+    ``shard_rows[i]``; ``tables`` (n, repair_packs(rows, l), l // 8, 256)
+    from ``repair_tables``, node i's coefficients for each of the ``rows``
+    sums; ``out`` (O, rows, Bp); ``wire_in`` and ``wire_out`` (n, O, rows,
+    S) with S * num_chunks == Bp. Node i adds its products to the partial
+    sums in ``wire_in[i]`` and writes them to ``wire_out[i + 1]``, or, for
+    the last node n - 1, to chunk t - i of ``out``. With ``head_zero`` the
+    caller says ``wire_in[0]`` is zero (as the pipeline keeps it): node 0
+    starts from zero sums and that row is not read.
+
+    Any rows: the tables are staged in shared memory in turn where they do
+    not fit at once. A launch takes at most 256 nodes (the row table
+    travels in its parameters); a tick over more nodes is several launches,
+    and ``repair_tick.launches`` counts each.
     """
     device = _check_tensors("repair_tick", wire_in=wire_in, wire_out=wire_out,
-                            local=local, out=out, bp=bp)
-    if local.dim() != 3 or bp.dim() != 3:
-        raise ValueError(f"repair_tick: local {tuple(local.shape)} / planes "
-                         f"{tuple(bp.shape)} must be (n, O, Bp) / (n, rows, l)")
-    n, O, Bp = local.shape
-    rows = bp.shape[1]
+                            shards=shards, out=out, tables=tables)
+    if shards.dim() != 3 or out.dim() != 3:
+        raise ValueError(f"repair_tick: shards {tuple(shards.shape)} / out "
+                         f"{tuple(out.shape)} must be (R, O, Bp) / (O, rows, Bp)")
+    R, O, Bp = shards.shape
+    rows = out.shape[1]
+    shard_rows = _check_shard_rows("repair_tick", shard_rows, R)
+    n = shard_rows.shape[0]
     S = wire_in.shape[-1]
     _check_tick("repair_tick", l, t, num_chunks, node_lo, node_count, n, O, S, Bp)
-    if bp.shape != (n, rows, l) or out.shape != (O, rows, Bp):
-        raise ValueError(f"repair_tick: planes {tuple(bp.shape)} / out "
-                         f"{tuple(out.shape)} do not match local "
-                         f"{tuple(local.shape)}")
+    if (rows < 1 or out.shape != (O, rows, Bp)
+            or tables.shape != (n, repair_packs(rows, l), l // 8, TABLE_BYTES)):
+        raise ValueError(f"repair_tick: tables {tuple(tables.shape)} / out "
+                         f"{tuple(out.shape)} do not match {n} nodes over shards "
+                         f"{tuple(shards.shape)}")
     if wire_in.shape != (n, O, rows, S) or wire_out.shape != wire_in.shape:
         raise ValueError(f"repair_tick: wires {tuple(wire_in.shape)} -> "
                          f"{tuple(wire_out.shape)} must be {(n, O, rows, S)}")
-    if rows < 1 or rows * l * 4 > _MAX_STATIC_SMEM:
-        raise ValueError(f"repair_tick: {rows} rows of planes do not fit "
-                         f"shared memory")
     if wire_in.data_ptr() == wire_out.data_ptr():
         raise ValueError("repair_tick: wire_in and wire_out must not alias")
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.gf_repair_tick(wire_in.data_ptr(), wire_out.data_ptr(),
-                                local.data_ptr(), out.data_ptr(), bp.data_ptr(),
-                                l, n, O, rows, Bp, S, t, num_chunks, node_lo,
-                                node_count, stream)
-    _raise_on("repair_tick", rc)
-    repair_tick.launches += 1
+        for lo, count in launch_ranges(node_lo, node_count, MAX_TICK_NODES):
+            rc = lib.gf_repair_tick(wire_in.data_ptr(), wire_out.data_ptr(),
+                                    shards.data_ptr(), out.data_ptr(), tables.data_ptr(),
+                                    shard_rows.ctypes.data, l, n, O, rows, Bp, S, t,
+                                    lo, count, int(head_zero), stream)
+            _raise_on("repair_tick", rc)
+            repair_tick.launches += 1
 
 
 repair_tick.launches = 0

@@ -44,13 +44,15 @@ def chain_tick(wire_in, wire_out, src, slots, out, tables, l: int, t: int,
        node_count)
 
 
-def repair_tick(wire_in, wire_out, local, out, bp, l: int, t: int,
-                num_chunks: int, node_lo: int, node_count: int) -> None:
-    """One decode tick over nodes [node_lo, node_lo + node_count); see
-    ``kernel.repair_tick`` for shapes. Writes ``out`` or ``wire_out`` in place."""
-    fn = _route(local, kernel.repair_tick, ref.repair_tick_ref)
-    fn(wire_in, wire_out, local, out, bp, l, t, num_chunks, node_lo,
-       node_count)
+def repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l: int, t: int,
+                num_chunks: int, node_lo: int, node_count: int,
+                head_zero: bool = False) -> None:
+    """One decode or repair tick over nodes [node_lo, node_lo + node_count);
+    see ``kernel.repair_tick`` for shapes. Writes ``out`` or ``wire_out`` in
+    place."""
+    fn = _route(shards, kernel.repair_tick, ref.repair_tick_ref)
+    fn(wire_in, wire_out, shards, shard_rows, out, tables, l, t, num_chunks,
+       node_lo, node_count, head_zero)
 
 
 def chain_step(x_in: torch.Tensor, local: torch.Tensor, bp_psi: torch.Tensor,
@@ -92,6 +94,7 @@ def repair_step(x_in: torch.Tensor, local: torch.Tensor, bp: torch.Tensor,
     Single object (x_in (rows, C), local (1, C)) or a batch
     (x_in (O, rows, C), local (O, 1, C)); ``bp`` (rows, l) bit-plane
     constants of the helper's coefficient column. Returns x_in ^ term.
+    The product tables are built on the host on every call.
     """
     single = x_in.dim() == 2
     if single:
@@ -105,11 +108,14 @@ def repair_step(x_in: torch.Tensor, local: torch.Tensor, bp: torch.Tensor,
     if bp.shape != (rows, l):
         raise ValueError(f"repair_step: planes must be {(rows, l)}")
     dev = x_in.device
-    # a one-node chain: node 0 is the last node, so it writes `out`, never the wire
+    tables = kernel.repair_tables(bp.cpu().numpy(), l)
+    # a one-node chain: node 0 is the last node, so it writes `out`, never the
+    # wire; its shard is the one row of `local`, and its x_in is not zero
     wire_out = torch.empty((1, O, rows, C), dtype=torch.int32, device=dev)
     out = torch.empty((O, rows, C), dtype=torch.int32, device=dev)
     repair_tick(x_in.contiguous()[None], wire_out, local.contiguous().view(1, O, C),
-                out, bp.contiguous()[None], l, 0, 1, 0, 1)
+                np.zeros(1, np.int32), out,
+                torch.from_numpy(tables.view(np.int32)).to(dev)[None], l, 0, 1, 0, 1)
     return out[0] if single else out
 
 

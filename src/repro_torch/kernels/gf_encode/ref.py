@@ -2,9 +2,9 @@
 
 Each function states the math of the JAX kernel its CUDA kernel replaces:
 shifts and masks on packed int32 lanes for the ticks and the bit-plane
-encode (the CUDA chain tick looks products up in tables instead; an entry
-is the xor of the planes of its byte's set bits, so both compute the
-same), table arithmetic on words for ``encode_words_ref``, and a float32
+encode (the CUDA ticks look products up in tables instead; an entry is
+the xor of the planes of its byte's set bits, so both compute the same),
+table arithmetic on words for ``encode_words_ref``, and a float32
 product of 0/1 bit-planes for the bit-lift. The CPU path runs them, the tests
 hold the JAX package against them, and ``chip_smoke.py`` holds the kernels
 against them on the card.
@@ -144,22 +144,45 @@ def chain_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
     wire_out[node_lo + 1:node_lo + fwd + 1] = xo[:fwd]
 
 
+def repair_table_planes(tables: torch.Tensor, l: int, rows: int) -> torch.Tensor:
+    """The bit-planes (..., rows, l) behind repair tables (..., packs, l // 8,
+    256): plane 8j + b of row ``(32 // l) * p + r`` is bits [l*r, l*r + l)
+    of table (p, j)'s entry for 1 << b."""
+    ent = tables[..., [1 << b for b in range(8)]].reshape(tables.shape[:-2] + (l,))
+    per = 32 // l
+    planes = torch.stack([(ent >> (l * r)) & ((1 << l) - 1) for r in range(per)], dim=-2)
+    return planes.reshape(tables.shape[:-3] + (-1, l))[..., :rows, :]
+
+
 def repair_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
-                    local: torch.Tensor, out: torch.Tensor, bp: torch.Tensor,
-                    l: int, t: int, num_chunks: int, node_lo: int,
-                    node_count: int) -> None:
-    """Plain version of ``kernel.repair_tick``: same shapes, same in-place
-    writes. One mask per bit, shared by all rows; the last node of the
-    chain writes the output chunk instead of the wire."""
-    n, O, Bp = local.shape
-    rows = bp.shape[1]
+                    shards: torch.Tensor, shard_rows, out: torch.Tensor,
+                    tables: torch.Tensor, l: int, t: int, num_chunks: int,
+                    node_lo: int, node_count: int, head_zero: bool = False) -> None:
+    """Plain version of ``kernel.repair_tick``: same operands, same in-place
+    writes. Gathers each active node's shard chunk through the row table and
+    does the JAX kernel's bit-plane arithmetic, one mask per bit shared by
+    all rows; the last node of the chain writes the output chunk instead of
+    the wire. With ``head_zero`` node 0 starts from zero sums.
+
+    Of the tables it reads only the single-bit entries
+    (``repair_table_planes``), which are the bit-planes ``D[r] * alpha^b``;
+    the tests and ``chip_smoke.py`` hold those against
+    ``gf.bitplane_table`` of the coefficients.
+    """
+    R, O, Bp = shards.shape
+    n, rows = tables.shape[0], out.shape[1]
     S = Bp // num_chunks
-    nodes, ch = _tick_nodes(t, node_lo, node_count, local.device)
+    nodes, ch = _tick_nodes(t, node_lo, node_count, shards.device)
+    idx = torch.tensor(np.asarray(shard_rows)[node_lo:node_lo + node_count],
+                       dtype=torch.int64, device=shards.device)
+    bp = repair_table_planes(tables[nodes], l, rows)             # (a, rows, l)
     acc = wire_in[node_lo:node_lo + node_count].clone()          # (a, O, rows, S)
-    blocks = local.view(n, O, num_chunks, S)[nodes, :, ch]        # (a, O, S)
+    if head_zero and node_lo == 0:
+        acc[0] = 0
+    blocks = shards.view(R, O, num_chunks, S)[idx, :, ch]        # (a, O, S)
     for b in range(l):
         m = (blocks >> b) & gf.LSB_MASK[l]
-        acc ^= m[:, :, None, :] * bp[nodes, :, b][:, None, :, None]
+        acc ^= m[:, :, None, :] * bp[:, :, b][:, None, :, None]
     fwd = min(node_count, n - 1 - node_lo)   # nodes that forward a wire
     wire_out[node_lo + 1:node_lo + fwd + 1] = acc[:fwd]
     if fwd < node_count:

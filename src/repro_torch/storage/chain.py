@@ -8,7 +8,8 @@ pipeline (``repro_torch.core.pipeline``) in ``num_chunks`` chunks, and each
 tick is ONE launch of the hand-written CUDA tick kernel over the active
 nodes (``repro_torch.kernels.gf_encode``) on packed int32 lanes. The encode
 tick reads each node's replica blocks in place through a slot table, so
-the placement is never copied.
+the placement is never copied; the decode tick reads the survivors' shards
+in place through a row table.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks run the kernels' plain PyTorch versions. Asking for a CUDA
@@ -17,8 +18,8 @@ device on a machine without one raises.
 Not ported yet: the ``mesh=`` / ``order=`` placement of chain positions on
 devices (on one card a chain position is a row of a tensor, so the order
 has no effect on values), streaming in super-chunks (``superchunk_words=``
-/ ``sink=``) and the tuned ``num_chunks=None``; the default is the
-hand-tuned 8 chunks.
+/ ``sink=``) and the tuning behind ``num_chunks=None``, which here takes
+the hand-tuned ``DEFAULT_NUM_CHUNKS``.
 """
 from __future__ import annotations
 
@@ -113,7 +114,11 @@ def build_local_blocks(code: ErasureCode, data: np.ndarray) -> np.ndarray:
     return np.where(valid[:, :, None], data[idx], 0).astype(data.dtype)
 
 
-def _check_chunking(B: int, l: int, num_chunks: int, what: str) -> None:
+def _check_chunking(B: int, l: int, num_chunks: int | None, what: str) -> int:
+    """The chunk count (``DEFAULT_NUM_CHUNKS`` for None), checked to cut a
+    block of B words into chunks of whole uint32 lanes."""
+    if num_chunks is None:
+        num_chunks = DEFAULT_NUM_CHUNKS
     lanes = gf.LANES[l]
     if num_chunks < 1:
         raise ValueError(f"{what}: num_chunks must be >= 1, got {num_chunks}")
@@ -125,11 +130,12 @@ def _check_chunking(B: int, l: int, num_chunks: int, what: str) -> None:
         raise ValueError(
             f"{what}: block length {B} must divide into {num_chunks} chunks "
             f"of whole uint32 lanes ({lanes} GF(2^{l}) words each)")
+    return num_chunks
 
 
-def _planes(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    # plane constants are < 2^16, so the int32 view holds the same bits
-    return torch.from_numpy(np.ascontiguousarray(table, dtype=np.int32)).to(device)
+def device_tables(tables: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Cached uint32 product tables as the int32 tensor a tick takes."""
+    return torch.from_numpy(tables.view(np.int32).copy()).to(device)
 
 
 def _words(x, l: int, rows: int, what: str, device: torch.device) -> torch.Tensor:
@@ -147,11 +153,11 @@ def encode_operands(code: ErasureCode, data_packed: torch.Tensor):
     ``src`` (1, k, Bp), a view of the data (the ticks read the replica
     blocks in place), ``slots`` (n, max_b) int32 on the host, and the
     product tables (n, max_b, l // 8, 256) int32 on the data's device."""
-    tables = torch.from_numpy(product_tables(code).view(np.int32).copy())
-    return data_packed[None], placement_slots(code), tables.to(data_packed.device)
+    return (data_packed[None], placement_slots(code),
+            device_tables(product_tables(code), data_packed.device))
 
 
-def pipelined_encode(code: ErasureCode, data, num_chunks: int = DEFAULT_NUM_CHUNKS,
+def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
                      device=None) -> torch.Tensor:
     """Archive object ``data`` (k, B) words -> codeword blocks (n, B) words.
 
@@ -161,6 +167,7 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int = DEFAULT_NUM_CHUN
     table and write every active node's codeword chunk straight into the
     (n, Bp) output; nodes without a chunk in a tick are not launched at
     all. The wire has n rows: the last node's forward is never read.
+    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``.
     """
     if not code.supports_chain_encode:
         raise ValueError(
@@ -169,7 +176,7 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int = DEFAULT_NUM_CHUN
     dev = _resolve_device(device)
     l, n = code.l, code.n
     data = _words(data, l, code.k, "pipelined_encode", dev)
-    _check_chunking(data.shape[1], l, num_chunks, "pipelined_encode")
+    num_chunks = _check_chunking(data.shape[1], l, num_chunks, "pipelined_encode")
     src, slots, tables = encode_operands(code, gf.pack_u32(data, l))
     Bp = src.shape[-1]
     out = torch.empty((n, 1, Bp), dtype=torch.int32, device=dev)  # every chunk written once
@@ -194,23 +201,35 @@ def decode_planes(code: ErasureCode, ids: tuple[int, ...]) -> np.ndarray:
     return planes
 
 
+@functools.lru_cache(maxsize=256)
+def decode_tables(code: ErasureCode, ids: tuple[int, ...]) -> np.ndarray:
+    """The decode ticks' product tables, (n_alive, packs, l // 8, 256)
+    uint32 (``kernel.repair_tables`` of ``decode_planes``): node i's
+    products for the k rows of column i of the decode matrix. Cached per
+    (code, survivor set), so a warm decode builds nothing."""
+    tables = kernel.repair_tables(decode_planes(code, ids), code.l)
+    tables.setflags(write=False)   # shared cached copy — freeze it
+    return tables
+
+
 def decode_operands(code: ErasureCode, ids, device: torch.device) -> torch.Tensor:
-    """``decode_planes`` as int32 on ``device``."""
-    return _planes(decode_planes(code, tuple(int(i) for i in ids)), device)
+    """``decode_tables`` as int32 on ``device``."""
+    return device_tables(decode_tables(code, tuple(int(i) for i in ids)), device)
 
 
-def pipelined_decode(code: ErasureCode, ids, shards,
-                     num_chunks: int = DEFAULT_NUM_CHUNKS,
+def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = None,
                      device=None) -> torch.Tensor:
     """Pipelined RapidRAID decode (paper §III's pipelined decoding).
 
     The len(ids) shard-holding nodes form a chain; the wire carries the k
     running partial output blocks, and node i adds D[:, i] * c_i as the
-    stream passes, one repair-tick launch per tick. Only the LAST node's
-    (k, Bp) sums are kept: they are the decoded object, written straight
-    into the output (the JAX package materializes every node's (k, Bp)
-    and keeps the last). ``shards`` (len(ids), B) words as a numpy array or
+    stream passes, one repair-tick launch per tick, reading its shard in
+    place. Only the LAST node's (k, Bp) sums are kept: they are the decoded
+    object, written straight into the output (the JAX package materializes
+    every node's (k, Bp) and keeps the last). Node 0 starts from zero sums
+    and reads no wire. ``shards`` (len(ids), B) words as a numpy array or
     tensor; returns the (k, B) object as a tensor of words on ``device``.
+    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``.
     """
     if not code.positionwise:
         raise ValueError(
@@ -220,15 +239,16 @@ def pipelined_decode(code: ErasureCode, ids, shards,
     dev = _resolve_device(device)
     l, k, n_alive = code.l, code.k, len(ids)
     shards = _words(shards, l, n_alive, "pipelined_decode", dev)
-    _check_chunking(shards.shape[1], l, num_chunks, "pipelined_decode")
-    bp = decode_operands(code, ids, dev)
-    local = gf.pack_u32(shards, l)[:, None]         # (n_alive, 1, Bp)
-    Bp = local.shape[-1]
+    num_chunks = _check_chunking(shards.shape[1], l, num_chunks, "pipelined_decode")
+    tables = decode_operands(code, ids, dev)
+    packed = gf.pack_u32(shards, l)[:, None]         # (n_alive, 1, Bp), a view
+    rows = np.arange(n_alive, dtype=np.int32)        # node i reads shard i
+    Bp = packed.shape[-1]
     out = torch.empty((1, k, Bp), dtype=torch.int32, device=dev)  # every chunk written once
 
     def step(wire_in, wire_out, t, lo, count):
-        ops.repair_tick(wire_in, wire_out, local, out, bp, l, t, num_chunks,
-                        lo, count)
+        ops.repair_tick(wire_in, wire_out, packed, rows, out, tables, l, t,
+                        num_chunks, lo, count, head_zero=True)
 
     pipeline.software_pipeline(step, n_alive, num_chunks,
                                (n_alive, 1, k, Bp // num_chunks), device=dev)

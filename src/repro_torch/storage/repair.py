@@ -14,23 +14,26 @@ On one card:
 * ``pipelined_repair`` runs the helper chain backwards — position p is
   played by helper h-1-p and the wire flows toward position 0, the
   replacement (``pipeline.position_nodes(h, reverse=True)``) — as the
-  forward schedule over the helper axis laid out in position order: one
-  ``repair_tick`` launch per tick, the wire carrying (|missing|, S) partial
-  sums, so up to n-k lost shards are rebuilt in ONE pass;
+  forward schedule over the chain positions: one ``repair_tick`` launch per
+  tick, each position reading its helper's shard in place through a row
+  table, the wire carrying (|missing|, S) partial sums, so up to n-k lost
+  shards are rebuilt in ONE pass;
 * ``star_repair`` applies R to the k helper shards in one ``gf_encode``
   launch;
 * ``degraded_read`` serves a word range of requested object blocks from
   the same range of the survivors' shards: the requested rows of the
   decode matrix in one ``gf_encode`` launch, nothing else read.
 
-The repair plan (helpers + R, a host Gaussian elimination) and the decode
-matrix of a survivor set are cached, so warm calls do no host algebra.
+The repair plan (helpers + R, a host Gaussian elimination), its tick
+operands (row table, product tables) and the decode matrix of a survivor
+set are cached, so warm calls do no host algebra and build no tables.
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks and the encode run the kernels' plain PyTorch versions.
 
 Not ported yet: ``pipelined_repair_many`` (multi-object), streaming in
-super-chunks (``superchunk_words=`` / ``sink=``), the tuned
-``num_chunks=None`` (the default is 8) and ``mesh=``.
+super-chunks (``superchunk_words=`` / ``sink=``), the tuning behind
+``num_chunks=None`` (here the hand-tuned ``DEFAULT_NUM_CHUNKS``) and
+``mesh=``.
 """
 from __future__ import annotations
 
@@ -41,10 +44,9 @@ import torch
 
 from repro_torch.core import fault_tolerance, gf, pipeline
 from repro_torch.core.codes import ErasureCode
-from repro_torch.kernels.gf_encode import ops
-from repro_torch.storage.chain import (DEFAULT_NUM_CHUNKS, _check_chunking,
-                                       _planes, _resolve_device, _words,
-                                       column_bitplanes)
+from repro_torch.kernels.gf_encode import kernel, ops
+from repro_torch.storage.chain import (_check_chunking, _resolve_device, _words,
+                                       column_bitplanes, device_tables)
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,6 +57,32 @@ def _repair_plan_cached(code: ErasureCode, missing: tuple[int, ...],
     helpers, R = fault_tolerance.repair_plan(code, list(missing), list(ids))
     R.setflags(write=False)
     return tuple(helpers), R
+
+
+@functools.lru_cache(maxsize=256)
+def _repair_operands_cached(code: ErasureCode, missing: tuple[int, ...],
+                            ids: tuple[int, ...]) -> tuple[np.ndarray, np.ndarray]:
+    """The pipelined repair's tick operands for a plan, by chain position
+    (``pipeline.position_nodes(h, reverse=True)``): the row of each
+    position's helper among the survivors' shards, (h,) int32, and its
+    product tables, (h, packs, l // 8, 256) uint32 (``kernel.repair_tables``
+    of R's column). Read-only."""
+    helpers, R = _repair_plan_cached(code, missing, ids)
+    order = pipeline.position_nodes(len(helpers), reverse=True)
+    rows = np.array([ids.index(helpers[p]) for p in order], dtype=np.int32)
+    tables = kernel.repair_tables(column_bitplanes(R, code.l)[order], code.l)
+    rows.setflags(write=False)
+    tables.setflags(write=False)
+    return rows, tables
+
+
+def repair_operands(code: ErasureCode, missing, ids, device) -> tuple[np.ndarray, torch.Tensor]:
+    """(row table on the host, product tables as int32 on ``device``) of
+    ``pipelined_repair``'s ticks; raises ValueError if ``ids`` cannot
+    rebuild ``missing``."""
+    rows, tables = _repair_operands_cached(code, tuple(int(m) for m in missing),
+                                           tuple(int(i) for i in ids))
+    return rows, device_tables(tables, device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -90,52 +118,41 @@ def repair_np(code: ErasureCode, missing, ids, shards) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _helper_lanes(code: ErasureCode, ids, shards, missing, what: str, device,
-                  num_chunks: int, reverse: bool) -> tuple[np.ndarray, torch.Tensor]:
-    """(R, the helpers' packed shards), the helpers stacked by chain position
-    (``pipeline.position_nodes(h, reverse)``); R's columns stay in the
-    plan's helper order."""
-    ids = [int(i) for i in ids]
+def _survivor_shards(code: ErasureCode, ids, shards, what: str, device,
+                     num_chunks: int | None) -> tuple[torch.Tensor, int]:
+    """(the survivors' shards as words on ``device``, the chunk count)."""
     if not code.positionwise:
         raise ValueError(f"{what}: {code.family} shards are sub-packetized — "
                          f"use code.repair_np")
     shards = _words(shards, code.l, len(ids), what, device)
-    _check_chunking(shards.shape[1], code.l, num_chunks, what)
-    helpers, R = _repair_plan_cached(code, tuple(int(m) for m in missing),
-                                     tuple(ids))
-    rows = [ids.index(helpers[p]) for p in pipeline.position_nodes(len(helpers), reverse)]
-    packed = gf.pack_u32(shards, code.l)
-    if rows != list(range(len(ids))):   # select through the int32 lanes
-        packed = packed[torch.tensor(rows, dtype=torch.int64, device=device)]
-    return R, packed
+    return shards, _check_chunking(shards.shape[1], code.l, num_chunks, what)
 
 
 def pipelined_repair(code: ErasureCode, ids, shards, missing,
-                     num_chunks: int = DEFAULT_NUM_CHUNKS,
-                     device=None) -> torch.Tensor:
+                     num_chunks: int | None = None, device=None) -> torch.Tensor:
     """Repair <= n-k lost shards by streaming k survivors through a chain.
 
     ids: surviving codeword rows; shards (len(ids), B) words (numpy or a
     tensor). The k chosen helpers form a reverse chain toward the
     replacement node; each tick is one ``repair_tick`` launch over the
-    active helpers, and the replacement ends up with the repaired
-    (|missing|, B) words, returned on ``device``. Raises ValueError if the
-    survivors are not decodable.
+    active helpers, which read their shards where they lie in ``shards``
+    (no gather), and the replacement ends up with the repaired
+    (|missing|, B) words, returned on ``device``. ``num_chunks=None`` takes
+    ``DEFAULT_NUM_CHUNKS``. Raises ValueError if the survivors are not
+    decodable.
     """
     dev = _resolve_device(device)
     l = code.l
-    R, local = _helper_lanes(code, ids, shards, missing, "pipelined_repair", dev,
-                             num_chunks, reverse=True)
-    h, Bp = local.shape
-    order = pipeline.position_nodes(h, reverse=True)
-    bp = _planes(column_bitplanes(R, l)[order], dev)     # (h, rows, l), by position
-    rows = R.shape[0]
-    local = local[:, None]                               # (h, 1, Bp)
+    shards, num_chunks = _survivor_shards(code, ids, shards, "pipelined_repair", dev,
+                                          num_chunks)
+    rows_table, tables = repair_operands(code, missing, ids, dev)
+    packed = gf.pack_u32(shards, l)[:, None]             # (len(ids), 1, Bp), a view
+    h, Bp, rows = len(rows_table), packed.shape[-1], len(missing)
     out = torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)  # every chunk written once
 
     def step(wire_in, wire_out, t, lo, count):
-        ops.repair_tick(wire_in, wire_out, local, out, bp, l, t, num_chunks,
-                        lo, count)
+        ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
+                        num_chunks, lo, count, head_zero=True)
 
     pipeline.software_pipeline(step, h, num_chunks, (h, 1, rows, Bp // num_chunks),
                                device=dev)
@@ -146,9 +163,14 @@ def star_repair(code: ErasureCode, ids, shards, missing, device=None) -> torch.T
     """Star repair: the replacement node gathers k whole helper shards and
     reconstructs locally, one ``gf_encode`` launch of R over them."""
     dev = _resolve_device(device)
-    R, helper_lanes = _helper_lanes(code, ids, shards, missing, "star_repair", dev,
-                                    1, reverse=False)
-    return gf.unpack_u32(ops.encode_packed(R, helper_lanes, code.l), code.l)
+    shards, _ = _survivor_shards(code, ids, shards, "star_repair", dev, 1)
+    ids = [int(i) for i in ids]
+    helpers, R = _repair_plan_cached(code, tuple(int(m) for m in missing), tuple(ids))
+    rows = [ids.index(h) for h in helpers]
+    packed = gf.pack_u32(shards, code.l)
+    if rows != list(range(len(ids))):   # select through the int32 lanes
+        packed = packed[torch.tensor(rows, dtype=torch.int64, device=dev)]
+    return gf.unpack_u32(ops.encode_packed(R, packed, code.l), code.l)
 
 
 # ---------------------------------------------------------------------------

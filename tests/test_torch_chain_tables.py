@@ -205,8 +205,8 @@ def test_pipelined_encode_reads_blocks_in_place(n, k, l, chunks, monkeypatch):
 
 
 def test_chain_tick_refuses_bad_slots():
-    for slots in (np.array([[0], [4]]), np.array([[0], [-2]]), np.array([[0, 1, 2]] * 2),
-                  np.array([[0.0], [1.0]])):
+    for slots in (np.array([[0], [4]]), np.array([[0], [-2]]), np.zeros((2, 513), np.int32),
+                  np.zeros((2, 0), np.int32), np.array([[0.0], [1.0]])):
         with pytest.raises(ValueError, match="slots"):
             kernel._check_slots("chain_tick", slots, 4)
 

@@ -161,24 +161,26 @@ def test_chain_tick_is_per_node_jax_chain_step(l, max_b, t):
 @pytest.mark.parametrize("rows", [1, 4])
 @pytest.mark.parametrize("l", [8, 16])
 def test_repair_tick_is_per_node_jax_repair_step(l, rows, t):
-    """One decode tick == the JAX repair step of every active node; the last
-    node's sums land in the output chunk instead of the wire."""
+    """One decode tick == the JAX repair step of every active node on the
+    shard its row table names; the last node's sums land in the output
+    chunk instead of the wire."""
     rng = np.random.default_rng(6)
     n, O, chunks, S = 4, 2, 3, 29
     wire_in = lanes(rng, (n, O, rows, S))
-    local = lanes(rng, (n, O, S * chunks))
+    shards = lanes(rng, (n + 1, O, S * chunks))
+    shard_rows = np.array([2, 0, 4, 1], np.int32)
     bp = gf.bitplane_table(rand_coeffs(rng, (n, rows), l), l)
     out = torch.zeros((O, rows, S * chunks), dtype=torch.int32)
     wire_out = torch.zeros((n, O, rows, S), dtype=torch.int32)
     lo, count = pipeline.active_nodes(t, n, chunks)
-    ops.repair_tick(t32(wire_in), wire_out, t32(local), out, t32(bp), l, t,
-                    chunks, lo, count)
+    ops.repair_tick(t32(wire_in), wire_out, t32(shards), shard_rows, out,
+                    t32(kernel.repair_tables(bp, l)), l, t, chunks, lo, count)
     want_out = np.zeros((O, rows, S * chunks), np.uint32)
     want_wire = np.zeros((n, O, rows, S), np.uint32)
     for i in range(lo, lo + count):
         sl = slice((t - i) * S, (t - i + 1) * S)
         acc = np.asarray(jops.repair_step(jnp.asarray(wire_in[i]),
-                                          jnp.asarray(local[i][:, None, sl]),
+                                          jnp.asarray(shards[shard_rows[i]][:, None, sl]),
                                           jnp.asarray(bp[i]), l, block=S))
         if i == n - 1:
             want_out[:, :, sl] = acc
@@ -206,8 +208,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernel.chain_tick(z(2, 1, 4), z(3, 1, 4), z(1, 2, 8), np.array([[0], [1]]),
                           z(2, 1, 8), z(2, 1, 1, 256), 8, 0, 2, 0, 1)
     with pytest.raises(ValueError, match="CUDA"):
-        kernel.repair_tick(z(2, 1, 3, 4), z(2, 1, 3, 4), z(2, 1, 8), z(1, 3, 8),
-                           z(2, 3, 8), 8, 0, 2, 0, 1)
+        kernel.repair_tick(z(2, 1, 3, 4), z(2, 1, 3, 4), z(2, 1, 8), np.array([0, 1]),
+                           z(1, 3, 8), z(2, 1, 1, 256), 8, 0, 2, 0, 1)
     assert kernel.launch_counts() == before
 
 
@@ -224,14 +226,16 @@ def test_repair_tick_kernel_matches_plain(cuda, l, rows):
     rng = np.random.default_rng(8)
     n, O, chunks, S, t = 4, 2, 3, 1029, 4
     wire_in = t32(lanes(rng, (n, O, rows, S)), cuda)
-    local = t32(lanes(rng, (n, O, S * chunks)), cuda)
-    bp = t32(gf.bitplane_table(rand_coeffs(rng, (n, rows), l), l), cuda)
+    shards = t32(lanes(rng, (n, O, S * chunks)), cuda)
+    shard_rows = np.array([3, 1, 0, 2], np.int32)
+    bp = gf.bitplane_table(rand_coeffs(rng, (n, rows), l), l)
+    tables = t32(kernel.repair_tables(bp, l), cuda)
     lo, count = pipeline.active_nodes(t, n, chunks)
     results = []
     for fn in (kernel.repair_tick, ref.repair_tick_ref):
         wire_out = torch.zeros_like(wire_in)
         out = torch.zeros((O, rows, S * chunks), dtype=torch.int32, device=cuda)
-        fn(wire_in, wire_out, local, out, bp, l, t, chunks, lo, count)
+        fn(wire_in, wire_out, shards, shard_rows, out, tables, l, t, chunks, lo, count)
         results.append((wire_out, out))
     torch.cuda.synchronize()
     for got, want in zip(*results):
