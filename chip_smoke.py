@@ -50,8 +50,36 @@ last line:
    per-matrix ``gf_encode`` build's time and ptxas report, and the
    bit-lift's shared memory per block.
 7. Replay each new kernel's launches of phase 6, and the repair ticks,
-   against the plain versions and time both; print one JSON line with every
-   kernel's numbers over all of the run's launches, then the device line.
+   against the plain versions and time both.
+8. Multi-object archival at Fig. 4's concurrency (paper §VI): 16 objects,
+   each the paper's 704 MiB (11 blocks of 2^25 words; not cut), made on the
+   card from the seed, run through ``pipelined_encode_many``,
+   ``pipelined_repair_many`` of the 5 lost blocks and
+   ``pipelined_decode_many`` from the 11 survivors at stagger 1, each once
+   with the counters set to 0 just before and read just after (launches ==
+   ``num_ticks_many``: 38, 33, 33) and its peak device bytes above the
+   resident inputs. Checks: every codeword against the plain packed matvec
+   on the card and windows of three objects against host numpy; the
+   repaired rows and the decoded objects. Wall times, first call and median
+   of 5, at staggers 1, 4 and 8 and for the loop of 16 single-object calls
+   beside each path; then each path's ticks replayed through the kernel and
+   its plain version (the ``chain_tick[many]`` and ``repair_tick[many]``
+   rows). The codewords are freed once the survivors and lost rows are
+   taken, and the repair runs before the decode, whose wires are 15 GiB:
+   the phase peaks near 65 GiB, at the decode's plain replay.
+9. The staggered ticks against their plain versions tick by tick (every
+   tick's wire and the outputs) for 16 objects of 2^22 words and 64 of
+   Fig. 4's 5.8 MB object (11 blocks of 2^18 words), at staggers 1, 3, 8
+   and 9 (past the chunk count); both routes timed at stagger 1, and at 64
+   objects each staggered entry point against the loop of 64 single calls.
+10. The code families at small shapes: ``encode_local`` of an LRC (16,11)
+   and an MBR (6,4) generator against ``encode_np``; an LRC block repaired
+   from its local group by ``pipelined_repair`` and ``star_repair`` against
+   ``repair_np``.
+
+Then one JSON line with every kernel's numbers over all of the run's
+launches (the staggered launches of phase 8 in rows of their own), and
+the device line.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -71,9 +99,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import classical, fault_tolerance, gf, pipeline, rapidraid  # noqa: E402
+from repro_torch.core import classical, codes, fault_tolerance, gf, pipeline, rapidraid  # noqa: E402
 from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
-from repro_torch.storage import atomic, chain, repair  # noqa: E402
+from repro_torch.storage import atomic, chain, multi, repair  # noqa: E402
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet and
 # Hopper white paper): HBM3 bandwidth, the non-tensor INT32 rate
@@ -93,22 +121,33 @@ PAST_CAPS_MXU = [(17, 11), (2, 17)]
 PAST_CAPS_PACKED = (12, 64)
 PAST_CAPS_MAX_B = (3, 5)                 # chain_tick slot counts past the unrolled 1 and 2
 PAST_CAPS_ROWS = ((16, 800), (8, 1600))  # repair_tick rows past 48 KB of planes
+MANY_OBJECTS = 16                        # Fig. 4's concurrent objects (paper §VI)
+MANY_BLOCK_WORDS = 1 << 25               # each the paper's 704 MiB object (Table II)
+MANY_STAGGERS = (1, 4, 8)                # the first is the counted run's
+TICK_SHAPES = ((16, 1 << 22), (64, 1 << 18))   # phase 9: (objects, words a block)
+TICK_STAGGERS = (1, 3, 8, NUM_CHUNKS + 1)
+FAMILY_CODES = (("lrc", 16, 11, 16), ("mbr", 6, 4, 8))   # phase 10: (family, n, k, l)
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
     "gf_encode": "src/repro/kernels/gf_encode/kernel.py:68",
     "gf_encode_mxu": "src/repro/kernels/gf_encode/kernel.py:241",
+    # the staggered launches of phase 8, kept apart from the single-object rows
+    "chain_tick[many]": "src/repro/kernels/gf_encode/kernel.py:115",
+    "repair_tick[many]": "src/repro/kernels/gf_encode/kernel.py:164",
 }
 # Why each row's library_ms is null: there is no PyTorch call to time.
 _NO_GF = "no PyTorch call computes a GF(2^l) multiply-accumulate (no carry-less or finite-field product)"
 LIBRARY_WHY = {
     "chain_tick": _NO_GF, "repair_tick": _NO_GF, "gf_encode": _NO_GF,
+    "chain_tick[many]": _NO_GF, "repair_tick[many]": _NO_GF,
     "gf_encode_mxu": "no PyTorch call computes the bit-lift with its unpack and mod-2 "
                      "repack; an int8 matmul is only its middle step",
 }
 CSRC = "src/repro_torch/kernels/gf_encode/csrc/"
 SOURCE = {"chain_tick": CSRC + "gf_tick.cu", "repair_tick": CSRC + "gf_tick.cu",
-          "gf_encode": CSRC + "gf_encode.cu", "gf_encode_mxu": CSRC + "gf_mxu.cu"}
+          "gf_encode": CSRC + "gf_encode.cu", "gf_encode_mxu": CSRC + "gf_mxu.cu",
+          "chain_tick[many]": CSRC + "gf_tick.cu", "repair_tick[many]": CSRC + "gf_tick.cu"}
 
 
 def smi(query: str) -> str:
@@ -128,7 +167,12 @@ def only(**launches: int) -> dict[str, int]:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+    """Largest |a - b| over the elements, taken 2^27 at a time (phase 8's
+    tensors are 16 GiB)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    step = 1 << 27
+    return max((int((a[i:i + step].long() - b[i:i + step].long()).abs().max().item())
+                for i in range(0, a.numel(), step)), default=0)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -388,6 +432,21 @@ def report_work(name: str, w: dict, what: str) -> None:
     print(f"{name} ({what}): {w['launches']} launches, {w['ms']:.3f} ms "
           f"(plain {w['plain_ms']:.3f} ms), bound {max(bytes_ms, ops_ms, int8_ms):.3f} ms "
           f"(bytes {bytes_ms:.3f}, int32 ops {ops_ms:.3f}, int8 ops {int8_ms:.3f})")
+
+
+def chain_tick_work(code, Bp: int) -> tuple[int, int]:
+    """(bytes, int32 ops) of one object's run of encode ticks: per node and
+    lane the wire and each replica slot in, the codeword and, except for the
+    last node (the encode's wire has n rows), the wire out; each slot with
+    nonzero planes costs l masks (shift, and), an xi multiply + xor, and a
+    psi multiply + xor where psi is nonzero."""
+    valid = code.chain.block_valid
+    psi_nz = code.chain.psi != 0
+    nbytes = sum(2 + int(valid[i].sum()) + (i + 1 < code.n) for i in range(code.n)) * Bp * 4
+    nops = sum(L * (4 + 2 * int(psi_nz[i, s]))
+               for i in range(code.n) for s in range(code.chain.max_blocks)
+               if valid[i, s]) * Bp
+    return nbytes, nops
 
 
 def repair_tick_work(h: int, rows: int, Bp: int, head_zero: bool) -> tuple[int, int]:
@@ -679,6 +738,338 @@ def phase_replay(code, cw_p, lost, ids, launches: dict, work: dict, errs: dict,
              repair_w["plain_ms"], repair_w["bytes"], repair_w["ops"])
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: staggered multi-object paths, their ticks, the code families
+# ---------------------------------------------------------------------------
+
+
+def many_paths(code, lost, ids, objects_p, shards_p, dev) -> dict:
+    """The three staggered paths' tick operands, each read in place from the
+    (B_obj, rows, Bp) batches: name -> chain length, wire slot shape, output
+    rows, the kernel and its plain version, and ``tick(fn, out, stagger)``,
+    the step of ``pipeline.staggered_pipeline`` through ``fn``."""
+    Bp = (objects_p if objects_p is not None else shards_p).shape[-1]
+    S = Bp // NUM_CHUNKS
+    paths = {}
+    if objects_p is not None:
+        src, slots, tables = chain.encode_operands(code, objects_p)
+
+        def enc(fn, out, stagger):
+            return lambda wi, wo, t, lo, count: fn(wi, wo, src, slots, out.transpose(0, 1),
+                                                   tables, L, t, NUM_CHUNKS, lo, count, stagger)
+        paths["encode"] = dict(n=N, slot=(S,), rows=N, Bp=Bp, tick=enc,
+                               fns=(kernel.chain_tick, ref.chain_tick_ref))
+    if shards_p is not None:
+        packed = shards_p.transpose(0, 1)             # (len(ids), B_obj, Bp), a view
+        dec_tables = chain.decode_operands(code, ids, dev)
+        dec_rows = np.arange(len(ids), dtype=np.int32)
+        rep_rows, rep_tables = repair.repair_operands(code, lost, ids, dev)
+
+        def dec(fn, out, stagger):
+            return lambda wi, wo, t, lo, count: fn(wi, wo, packed, dec_rows, out, dec_tables, L,
+                                                   t, NUM_CHUNKS, lo, count, True, stagger)
+
+        def rep(fn, out, stagger):
+            return lambda wi, wo, t, lo, count: fn(wi, wo, packed, rep_rows, out, rep_tables, L,
+                                                   t, NUM_CHUNKS, lo, count, True, stagger)
+        fns = (kernel.repair_tick, ref.repair_tick_ref)
+        paths["decode"] = dict(n=len(ids), slot=(K, S), rows=K, Bp=Bp, tick=dec, fns=fns)
+        paths["repair"] = dict(n=len(rep_rows), slot=(len(lost), S), rows=len(lost), Bp=Bp,
+                               tick=rep, fns=fns)
+    return paths
+
+
+def staggered_run(path: dict, fn, n_obj: int, stagger: int, dev, out=None):
+    """A fresh staggered run of ``path``'s ticks through ``fn`` (one launch a
+    tick); returns (run, out)."""
+    if out is None:
+        out = torch.empty((n_obj, path["rows"], path["Bp"]), dtype=torch.int32, device=dev)
+    W = pipeline.window_size(NUM_CHUNKS, n_obj, stagger)
+    wires = [torch.zeros((path["n"], W) + path["slot"], dtype=torch.int32, device=dev)
+             for _ in range(2)]
+    tick = path["tick"](fn, out, stagger)
+
+    def run():
+        for t in range(pipeline.num_ticks_many(NUM_CHUNKS, path["n"], n_obj, stagger)):
+            lo, count = pipeline.active_nodes_many(t, path["n"], NUM_CHUNKS, n_obj, stagger)
+            tick(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
+    return run, out
+
+
+def compare_ticks(path: dict, n_obj: int, stagger: int, dev, errs: dict, key: str,
+                  what: str) -> torch.Tensor:
+    """One staggered run through the kernel and through its plain version in
+    turns, tick by tick: every tick's outgoing wire and the output are held
+    equal. Returns the kernel's output."""
+    routes = []
+    for fn in path["fns"]:
+        out = torch.zeros((n_obj, path["rows"], path["Bp"]), dtype=torch.int32, device=dev)
+        W = pipeline.window_size(NUM_CHUNKS, n_obj, stagger)
+        wires = [torch.zeros((path["n"], W) + path["slot"], dtype=torch.int32, device=dev)
+                 for _ in range(2)]
+        routes.append((out, wires, path["tick"](fn, out, stagger)))
+    for t in range(pipeline.num_ticks_many(NUM_CHUNKS, path["n"], n_obj, stagger)):
+        lo, count = pipeline.active_nodes_many(t, path["n"], NUM_CHUNKS, n_obj, stagger)
+        for _, wires, tick in routes:
+            tick(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
+        torch.cuda.synchronize()
+        got, want = (wires[t % 2] for _, wires, _ in routes)
+        check(torch.equal(got, want), f"{key} == plain version at tick {t} ({what})")
+        errs[key] = max(errs[key], max_abs_err(got, want))
+    check(torch.equal(routes[0][0], routes[1][0]), f"{key} == plain version, output ({what})")
+    return routes[0][0]
+
+
+def first_and_median(fn, check_fn=None) -> tuple[float, float]:
+    """(first-call ms, median of 5 repeats in ms) of ``fn`` on the host clock,
+    each synchronized; ``check_fn`` holds the first call's result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    if check_fn is not None:
+        check_fn(out)
+    del out
+    return first, wall_ms(fn)
+
+
+def phase_many(code, lost, ids, dev, seed: int, work: dict, errs: dict) -> None:
+    """Phase 8: the staggered entry points at Fig. 4's concurrency and the
+    paper's object size, checked, counted, timed against the loop."""
+    n_obj, B = MANY_OBJECTS, MANY_BLOCK_WORDS
+    Bp = B // 2
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    objects_p = torch.empty((n_obj, K, Bp), dtype=torch.int32, device=dev)
+    for o in range(n_obj):                        # made on the card, one object at a time
+        objects_p[o] = rand_i32(gen, (K, Bp), dev)
+    objects = gf.unpack_u32(objects_p, L)         # (B_obj, k, B) words, a view
+    lost_t, ids_t = (torch.tensor(x, device=dev) for x in (lost, ids))
+    rng = np.random.default_rng(seed + 8)
+    starts = window_starts(B, rng)
+    print(f"multi-object: {n_obj} objects of {K * B * 2} bytes ({K * B * 2 / 2**20:.0f} MiB), "
+          f"({N},{K}) GF(2^{L}), {NUM_CHUNKS} chunks, stagger 1 (and {MANY_STAGGERS} timed), "
+          f"lost nodes {lost}; {n_obj * K * B * 2 / 2**30:.2f} GiB of objects resident")
+
+    # -- encode ---------------------------------------------------------------
+    enc_ticks = pipeline.num_ticks_many(NUM_CHUNKS, N, n_obj, 1)
+    cw = first_call("pipelined_encode_many (stagger 1)",
+                    lambda: multi.pipelined_encode_many(code, objects, NUM_CHUNKS, 1),
+                    only(chain_tick=enc_ticks))
+    cw_p = gf.pack_u32(cw, L)
+    check(tuple(cw.shape) == (n_obj, N, B), f"codewords {tuple(cw.shape)}")
+    for o in range(n_obj):
+        check(torch.equal(cw_p[o], gf.gf_matvec_packed(code.G, objects_p[o], L)),
+              f"object {o}'s codeword == plain packed matvec on the card")
+    for o in (0, n_obj // 2, n_obj - 1):
+        for w in starts:
+            win = cw_p[o, :, w // 2:w // 2 + 32].cpu().numpy().view(np.uint16)
+            obj = objects_p[o, :, w // 2:w // 2 + 32].cpu().numpy().view(np.uint16)
+            check(np.array_equal(win, gf.gf_matmul_np(code.G, obj, L)),
+                  f"object {o}'s codeword window at word {w} vs host field")
+    print(f"checks: {n_obj} codewords == plain packed matvec; {3 * len(starts)} windows of "
+          f"objects 0, {n_obj // 2}, {n_obj - 1} == host gf_matmul_np")
+    many_timings("pipelined_encode_many",
+                 lambda st: multi.pipelined_encode_many(code, objects, NUM_CHUNKS, st),
+                 cw_p, N, n_obj,
+                 lambda: [chain.pipelined_encode(code, objects[o], NUM_CHUNKS)
+                          for o in range(n_obj)])
+    path = many_paths(code, lost, ids, objects_p, None, dev)["encode"]
+    run, out = staggered_run(path, kernel.chain_tick, n_obj, 1, dev)
+    ms = median_ms(run, 3)
+    check(torch.equal(out, cw_p.view(n_obj, N, Bp)), "replayed staggered encode")
+    del run, out
+    torch.cuda.empty_cache()
+    run, out = staggered_run(path, ref.chain_tick_ref, n_obj, 1, dev)
+    plain_ms = median_ms(run, 1)
+    check(torch.equal(out, cw_p.view(n_obj, N, Bp)), "plain replay of the staggered encode")
+    errs["chain_tick[many]"] = max(errs["chain_tick[many]"], max_abs_err(out, cw_p))
+    del run, out, path
+    nbytes, nops = chain_tick_work(code, Bp)
+    add_work(work, "chain_tick[many]", enc_ticks, ms, plain_ms, n_obj * nbytes, n_obj * nops)
+    report_work("chain_tick[many]", work["chain_tick[many]"], f"{n_obj} objects, stagger 1")
+
+    # survivors and lost rows of every object; the codewords go
+    shards_p = cw_p[:, ids_t]                     # (B_obj, 11, Bp): a copy
+    lost_p = cw_p[:, lost_t]
+    shards = gf.unpack_u32(shards_p, L)
+    del cw, cw_p
+    torch.cuda.empty_cache()
+    paths = many_paths(code, lost, ids, None, shards_p, dev)
+
+    # -- repair (before the decode: its wires are the smaller) -----------------
+    h = paths["repair"]["n"]
+    rep_ticks = pipeline.num_ticks_many(NUM_CHUNKS, h, n_obj, 1)
+    rep = first_call("pipelined_repair_many (stagger 1)",
+                     lambda: repair.pipelined_repair_many(code, ids, shards, lost, NUM_CHUNKS, 1),
+                     only(repair_tick=rep_ticks))
+    check(torch.equal(gf.pack_u32(rep, L), lost_p), "repaired rows == lost rows")
+    del rep
+    many_timings("pipelined_repair_many",
+                 lambda st: repair.pipelined_repair_many(code, ids, shards, lost, NUM_CHUNKS, st),
+                 lost_p, h, n_obj,
+                 lambda: [repair.pipelined_repair(code, ids, shards[o], lost, NUM_CHUNKS)
+                          for o in range(n_obj)])
+    rep_ms, rep_plain_ms = replay_many(paths["repair"], n_obj, lost_p, errs, dev)
+    del lost_p
+    torch.cuda.empty_cache()
+
+    # -- decode ---------------------------------------------------------------
+    dec_ticks = pipeline.num_ticks_many(NUM_CHUNKS, len(ids), n_obj, 1)
+    dec = first_call("pipelined_decode_many (stagger 1)",
+                     lambda: multi.pipelined_decode_many(code, ids, shards, NUM_CHUNKS, 1),
+                     only(repair_tick=dec_ticks))
+    check(torch.equal(gf.pack_u32(dec, L), objects_p), "decoded objects == data")
+    del dec
+    many_timings("pipelined_decode_many",
+                 lambda st: multi.pipelined_decode_many(code, ids, shards, NUM_CHUNKS, st),
+                 objects_p, len(ids), n_obj,
+                 lambda: [chain.pipelined_decode(code, ids, shards[o], NUM_CHUNKS)
+                          for o in range(n_obj)])
+    dec_ms, dec_plain_ms = replay_many(paths["decode"], n_obj, objects_p, errs, dev)
+    dec_b, dec_o = repair_tick_work(len(ids), K, Bp, head_zero=True)
+    rep_b, rep_o = repair_tick_work(h, len(lost), Bp, head_zero=True)
+    add_work(work, "repair_tick[many]", dec_ticks + rep_ticks, dec_ms + rep_ms,
+             dec_plain_ms + rep_plain_ms, n_obj * (dec_b + rep_b), n_obj * (dec_o + rep_o))
+    print(f"repair_tick[many]: decode {dec_ms:.3f} ms (plain {dec_plain_ms:.3f}), repair "
+          f"{rep_ms:.3f} ms (plain {rep_plain_ms:.3f}); bounds decode "
+          f"{n_obj * dec_b / HBM_BYTES_PER_S * 1e3:.3f} ms, repair "
+          f"{n_obj * rep_b / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
+    report_work("repair_tick[many]", work["repair_tick[many]"],
+                f"{n_obj} objects, stagger 1, decode + repair")
+    del paths, shards, shards_p, objects, objects_p
+    torch.cuda.empty_cache()
+
+
+def many_timings(name: str, call, want: torch.Tensor, n: int, n_obj: int, loop) -> None:
+    """First call and median of 5 of a staggered entry point at each of
+    ``MANY_STAGGERS`` past the first (``first_call`` timed stagger 1; each
+    result held against ``want``), and of the loop of single-object calls
+    beside them."""
+    for stagger in MANY_STAGGERS[1:]:
+        first, med = first_and_median(
+            lambda: call(stagger),
+            lambda got: check(torch.equal(gf.pack_u32(got, L), want),
+                              f"{name} at stagger {stagger}"))
+        print(f"{name} stagger={stagger}: {first:.3f} ms first call, {med:.3f} ms median of 5 "
+              f"({pipeline.num_ticks_many(NUM_CHUNKS, n, n_obj, stagger)} launches)")
+    first, med = first_and_median(
+        loop, lambda got: check(all(torch.equal(gf.pack_u32(g, L), want[o])
+                                    for o, g in enumerate(got)), f"{name}: the loop's results"))
+    print(f"loop of {n_obj} single-object calls beside {name}: {first:.3f} ms first call, "
+          f"{med:.3f} ms median of 5 ({n_obj * pipeline.num_ticks(NUM_CHUNKS, n)} launches)")
+
+
+def replay_many(path: dict, n_obj: int, want: torch.Tensor, errs: dict,
+                dev) -> tuple[float, float]:
+    """The staggered run's ticks through the kernel and, after it, through the
+    plain version, each held against ``want``; returns (ms, plain ms)."""
+    times = []
+    for fn, reps in zip(path["fns"], (3, 1)):
+        torch.cuda.empty_cache()
+        run, out = staggered_run(path, fn, n_obj, 1, dev)
+        times.append(median_ms(run, reps))
+        check(torch.equal(out, want), f"replayed staggered {fn.__name__}")
+        errs["repair_tick[many]"] = max(errs["repair_tick[many]"], max_abs_err(out, want))
+        del run, out
+    return times[0], times[1]
+
+
+def phase_many_ticks(code, lost, ids, dev, seed: int, errs: dict) -> None:
+    """Phase 9: the staggered ticks against their plain versions tick by tick
+    at two shapes and four staggers; both routes timed, and the batch
+    against the loop at the launch-bound shape."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    ids_t = torch.tensor(ids, device=dev)
+    for n_obj, B in TICK_SHAPES:
+        Bp = B // 2
+        objects_p = rand_i32(gen, (n_obj, K, Bp), dev)
+        enc = many_paths(code, lost, ids, objects_p, None, dev)["encode"]
+        for stagger in TICK_STAGGERS:
+            cw_p = compare_ticks(enc, n_obj, stagger, dev, errs, "chain_tick[many]",
+                                 f"{n_obj} objects of {B} words, stagger {stagger}")
+            if stagger == TICK_STAGGERS[0]:
+                want_cw = cw_p
+            check(torch.equal(cw_p, want_cw), f"codewords at stagger {stagger}")
+        shards_p = want_cw[:, ids_t]
+        lost_p = want_cw[:, torch.tensor(lost, device=dev)]
+        paths = many_paths(code, lost, ids, None, shards_p, dev)
+        for name, want in (("decode", objects_p), ("repair", lost_p)):
+            for stagger in TICK_STAGGERS:
+                got = compare_ticks(paths[name], n_obj, stagger, dev, errs, "repair_tick[many]",
+                                    f"{name}, {n_obj} objects of {B} words, stagger {stagger}")
+                check(torch.equal(got, want), f"staggered {name} at stagger {stagger}")
+        print(f"staggered ticks, {n_obj} objects of {B} words, staggers {TICK_STAGGERS}: "
+              f"kernel == plain version at every tick of encode, decode and repair")
+        for name, path in (("encode", enc), ("decode", paths["decode"]),
+                           ("repair", paths["repair"])):
+            times = [median_ms(staggered_run(path, fn, n_obj, 1, dev)[0], reps)
+                     for fn, reps in zip(path["fns"], (5, 2))]
+            print(f"staggered {name} ticks, {n_obj} objects of {B} words, stagger 1 "
+                  f"({pipeline.num_ticks_many(NUM_CHUNKS, path['n'], n_obj, 1)} launches): "
+                  f"kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms")
+        if n_obj == TICK_SHAPES[-1][0]:
+            objects, shards = gf.unpack_u32(objects_p, L), gf.unpack_u32(shards_p, L)
+            for name, batch, loop in (
+                    ("encode", lambda: multi.pipelined_encode_many(code, objects, NUM_CHUNKS, 1),
+                     lambda: [chain.pipelined_encode(code, objects[o], NUM_CHUNKS)
+                              for o in range(n_obj)]),
+                    ("decode", lambda: multi.pipelined_decode_many(code, ids, shards, NUM_CHUNKS, 1),
+                     lambda: [chain.pipelined_decode(code, ids, shards[o], NUM_CHUNKS)
+                              for o in range(n_obj)]),
+                    ("repair", lambda: repair.pipelined_repair_many(code, ids, shards, lost,
+                                                                    NUM_CHUNKS, 1),
+                     lambda: [repair.pipelined_repair(code, ids, shards[o], lost, NUM_CHUNKS)
+                              for o in range(n_obj)])):
+                b_first, b_med = first_and_median(batch)
+                l_first, l_med = first_and_median(loop)
+                print(f"{name}, {n_obj} objects of {B} words: staggered batch {b_first:.3f} ms "
+                      f"first call, {b_med:.3f} ms median of 5; loop of {n_obj} single-object "
+                      f"calls {l_first:.3f} ms first call, {l_med:.3f} ms median of 5")
+        del objects_p, enc, paths, shards_p, lost_p, want_cw, cw_p
+        torch.cuda.empty_cache()
+
+
+def phase_families(dev, seed: int) -> None:
+    """Phase 10: the LRC and MBR codes through the static encode, and an LRC
+    block repaired through its local group, checked against the host."""
+    rng = np.random.default_rng(seed + 10)
+    for family, n, k, l in FAMILY_CODES:
+        code = codes.make(family, n, k, l=l, seed=seed)
+        B = 4000
+        data = rng.integers(0, 1 << l, size=(k, B)).astype(gf.WORD_DTYPE[l])
+        msg = torch.from_numpy(np.ascontiguousarray(code.to_message(data))).to(dev)
+        kernel.reset_launch_counts()
+        out = atomic.encode_local(code, gf.pack_u32(msg, l))
+        torch.cuda.synchronize()
+        check(kernel.launch_counts() == only(gf_encode=1), f"{family} encode_local launches")
+        got = gf.unpack_u32(out, l).reshape(n, -1).cpu().numpy()
+        check(np.array_equal(got, code.encode_np(data)), f"{family} encode_local == encode_np")
+        print(f"{family} ({n},{k}) GF(2^{l}): encode_local of its {code.G.shape} generator "
+              f"over {B} words (shards of {code.shard_words(B)}) == encode_np")
+        if family != "lrc":
+            continue
+        cw = code.encode_np(data)
+        lost = [4]
+        ids = [i for i in range(n) if i not in lost]
+        helpers = code.repair_helpers(lost, ids)
+        want = code.repair_np(lost, ids, cw[ids])
+        check(np.array_equal(want, cw[lost]), "lrc repair_np == lost row")
+        kernel.reset_launch_counts()
+        rep = repair.pipelined_repair(code, ids, cw[ids], lost, NUM_CHUNKS)
+        torch.cuda.synchronize()
+        check(kernel.launch_counts() == only(repair_tick=pipeline.num_ticks(NUM_CHUNKS,
+                                                                             len(helpers))),
+              "lrc pipelined_repair launches: a chain of its local group")
+        check(np.array_equal(rep.cpu().numpy(), want), "lrc pipelined_repair == repair_np")
+        star = repair.star_repair(code, ids, cw[ids], lost)
+        check(np.array_equal(star.cpu().numpy(), want), "lrc star_repair == repair_np")
+        print(f"lrc: block {lost[0]} repaired from its local group {helpers} "
+              f"(locality {code.locality}) by pipelined_repair "
+              f"({pipeline.num_ticks(NUM_CHUNKS, len(helpers))} repair_tick launches) and "
+              f"star_repair == repair_np")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -827,24 +1218,11 @@ def main() -> int:
     errs["repair_tick"] = max(errs["repair_tick"], max_abs_err(
         dec_outs[kernel.repair_tick], dec_outs[ref.repair_tick_ref]))
 
-    # Work over all of a run's ticks. Per active node and lane, chain_tick
-    # reads the wire and each replica slot and writes the codeword and,
-    # except for the last node (the encode's wire has n rows), the wire;
-    # each slot with nonzero planes costs l masks (shift, and), an xi
-    # multiply + xor, and a psi multiply + xor where psi is nonzero.
-    # repair_tick reads the shard lane and `rows` sums (node 0 none: the
-    # decode says its head row is zero) and writes `rows` sums, with l masks
-    # and rows * l multiply + xor.
-    valid = code.chain.block_valid
-    psi_nz = code.chain.psi != 0
-    enc_bytes = sum(2 + int(valid[i].sum()) + (i + 1 < N) for i in range(N)) * Bp * 4
-    enc_ops = sum(L * (4 + 2 * int(psi_nz[i, s]))
-                  for i in range(N) for s in range(code.chain.max_blocks)
-                  if valid[i, s]) * Bp
+    # Work over all of a run's ticks (chain_tick_work, repair_tick_work).
     work = {name: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
                    "ops": 0, "int8_ops": 0} for name in REPLACES}
     add_work(work, "chain_tick", counts["chain_tick"], timings[kernel.chain_tick],
-             timings[ref.chain_tick_ref], enc_bytes, enc_ops)
+             timings[ref.chain_tick_ref], *chain_tick_work(code, Bp))
     add_work(work, "repair_tick", counts["repair_tick"], timings[kernel.repair_tick],
              timings[ref.repair_tick_ref], *repair_tick_work(n_alive, K, Bp, head_zero=True))
     print(f"encode operands: product tables {tuple(tables.shape)} built on the host in "
@@ -870,6 +1248,17 @@ def main() -> int:
 
     # -- phase 7: the slice's launches, kernel vs plain version ---------------
     phase_replay(code, cw_p, lost, ids, launches, work, errs, dev)
+    del launches, data_p, data, cw, cw_p, shards, rec, src, tables, dec_shards, dec_tables
+    torch.cuda.empty_cache()
+
+    # -- phase 8: staggered multi-object encode, decode, repair at full size --
+    phase_many(code, lost, ids, dev, seed, work, errs)
+
+    # -- phase 9: the staggered ticks against their plain versions ------------
+    phase_many_ticks(code, lost, ids, dev, seed, errs)
+
+    # -- phase 10: the LRC and MBR code families at small shapes --------------
+    phase_families(dev, seed)
 
     rows = []
     for name, w in work.items():

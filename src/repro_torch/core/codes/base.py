@@ -1,11 +1,13 @@
-"""Erasure-code API shared by code families (the part the chain data plane uses).
+"""Erasure-code API shared by every code family.
 
 The pipelined encode, decode and repair in ``repro_torch.storage`` need
 only a small surface from a code: its geometry ``(n, k, l)``, a generator
 matrix over GF(2^l), a decode matrix for a survivor subset and a repair
-plan for lost rows. :class:`ErasureCode`
-pins that surface down; :class:`CodeSpec` — ``(family, n, k, l, seed)`` —
-carries a code's identity in a hashable, serializable form.
+plan ``(helpers, R)`` with ``R @ c[helpers] = c[missing]``.
+:class:`ErasureCode` pins that surface down, so the families (RapidRAID,
+LRC, MBR) run through the same kernels; :class:`CodeSpec` — ``(family, n,
+k, l, seed)`` — carries a code's identity in a hashable, serializable form,
+and ``repro_torch.core.codes.from_spec`` rebuilds the code from it.
 
 Topology hints route a family down the paths it supports:
 
@@ -13,7 +15,10 @@ Topology hints route a family down the paths it supports:
   schedule (``.chain``) and can use the pipelined encode path.
 * ``positionwise`` — shards are node-granular positionwise linear
   combinations of the data blocks (one generator row per node), so decode
-  can run through the fused GF inner-product tick kernel.
+  and repair can run through the GF inner-product tick kernel.
+  Sub-packetized families (regenerating codes store ``rows_per_node > 1``
+  sub-blocks a node) set it False and bring their own
+  ``encode_np``/``decode_np``/``repair_np``.
 """
 from __future__ import annotations
 
@@ -102,6 +107,19 @@ class ErasureCode:
     #: sub-blocks stored per node (generator rows per node)
     rows_per_node = 1
 
+    @property
+    def storage_overhead(self) -> float:
+        return self.n / self.k
+
+    def shard_words(self, block_words: int) -> int:
+        """Stored words per node for a (k, block_words) object."""
+        return block_words
+
+    def repair_transfer_words(self, block_words: int) -> int:
+        """Words crossing the network to repair ONE lost node (model)."""
+        helpers, _ = self.repair_plan([0], list(range(1, self.n)))
+        return len(helpers) * self.shard_words(block_words)
+
     # -- matrix surface ----------------------------------------------------
     @property
     def G(self) -> np.ndarray:
@@ -119,8 +137,15 @@ class ErasureCode:
         return [i * r + a for i in ids for a in range(r)]
 
     # -- encode / decode ---------------------------------------------------
+    def to_message(self, data: np.ndarray) -> np.ndarray:
+        """Message view fed to the flattened generator ``G``: identity for
+        positionwise codes, the padded (M_sub, W) packing for
+        sub-packetized families. ``G @ to_message(data)`` reshaped to
+        (n, shard_words) is every family's static-kernel encode."""
+        return np.asarray(data)
+
     def encode_np(self, data: np.ndarray) -> np.ndarray:
-        """(k, B) words -> (n, B) shards (host oracle)."""
+        """(k, B) words -> (n, shard_words(B)) shards (host oracle)."""
         data = np.asarray(data)
         if data.shape[0] != self.k:
             raise ValueError(f"encode_np: data {data.shape} must have k={self.k} rows")
@@ -145,8 +170,13 @@ class ErasureCode:
         D[:, chosen] = inv
         return D
 
-    def decode_np(self, ids, shards: np.ndarray) -> np.ndarray:
-        """Reconstruct the (k, B) object from any decodable shard subset."""
+    def decode_np(self, ids, shards: np.ndarray,
+                  block_words: int | None = None) -> np.ndarray:
+        """Reconstruct the (k, B) object from any decodable shard subset.
+
+        ``block_words`` disambiguates trailing padding for sub-packetized
+        families; positionwise families ignore it.
+        """
         D = self.decode_matrix(ids)
         return gf.gf_matmul_np(D, np.asarray(shards), self.l)
 
@@ -166,13 +196,16 @@ class ErasureCode:
         Returns ``(helpers, R)`` with ``R @ c[helpers] = c[missing]`` —
         one GF inner product over the helper shards per lost row, no full
         decode. Raises ValueError (before touching data) when survivors
-        are not decodable.
+        are not decodable. Families with locality (LRC) override this to
+        return plans touching fewer helpers.
         """
         return matrix_repair_plan(self, missing, alive)
 
     def repair_helpers(self, missing: Iterable[int],
                        alive: Iterable[int]) -> list[int]:
-        """The survivor rows a repair of ``missing`` must read."""
+        """The survivor rows a repair of ``missing`` must read. Default: the
+        plan's helper list; sub-packetized families override (their plan
+        is not a positionwise matrix)."""
         return self.repair_plan(list(missing), list(alive))[0]
 
     def repair_np(self, missing, ids, shards: np.ndarray) -> np.ndarray:

@@ -13,6 +13,14 @@ writes row i + 1 of the other buffer. Row 0 is never written, so the head
 of the chain reads zeros. One tick is one kernel launch over the active
 nodes only, so nodes outside ``active_nodes`` cost nothing.
 
+Many objects (paper §VI, Fig. 4) run as staggered chains on the same node
+axis: object b's schedule starts ``b * stagger`` ticks after object 0's, so
+node i works chunk t - i - b * stagger of object b. At most ``window_size``
+objects are active on a node at once, and the wire carries that window:
+W slots a node, object b in slot b % W. The active objects of a node are
+consecutive, so no two of them share a slot, and a node's successor reads
+the object in the slot it was written to (``staggered_pipeline``).
+
 The schedule runs in one direction on the node axis. The reverse chain of
 repair (node idx plays position n-1-idx and the wire flows toward node 0,
 the replacement) is the same schedule over the node axis laid out in
@@ -76,5 +84,64 @@ def software_pipeline(step_fn: Callable, n: int, num_chunks: int,
     ticks = num_ticks(num_chunks, n)
     for t in range(ticks):
         lo, count = active_nodes(t, n, num_chunks)
+        step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
+    return ticks
+
+
+# ---------------------------------------------------------------------------
+# Staggered multi-object pipeline (multi-object archival, paper §VI / Fig. 4)
+# ---------------------------------------------------------------------------
+
+
+def window_size(num_chunks: int, num_objects: int, stagger: int) -> int:
+    """Max objects simultaneously active on one node.
+
+    Object b's chunk ch is processed by node i at tick t = i + b*stagger + ch,
+    so the active objects at (i, t) satisfy 0 <= t - i - b*stagger < num_chunks
+    — at most (num_chunks-1)//stagger + 1 values of b.
+    """
+    return min(num_objects, (num_chunks - 1) // stagger + 1)
+
+
+def num_ticks_many(num_chunks: int, n_stages: int, num_objects: int,
+                   stagger: int) -> int:
+    return num_chunks + n_stages - 1 + (num_objects - 1) * stagger
+
+
+def active_nodes_many(t: int, n: int, num_chunks: int, num_objects: int,
+                      stagger: int) -> tuple[int, int]:
+    """(first node, node count) of the nodes within the staggered run's span
+    at tick t: node i with 0 <= t - i < (num_objects-1)*stagger + num_chunks.
+    Every node with an active object is among them; with stagger >
+    num_chunks a node may fall between two objects and have none."""
+    span = (num_objects - 1) * stagger + num_chunks
+    lo = max(0, t - span + 1)
+    hi = min(n - 1, t)
+    return lo, hi - lo + 1
+
+
+def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
+                       slot_shape: tuple[int, ...], *, num_objects: int,
+                       stagger: int, device: torch.device) -> int:
+    """Interleave ``num_objects`` chain pipelines over the node axis; returns
+    the number of ticks, ``num_ticks_many(...)``, against
+    ``num_objects * num_ticks(...)`` for a loop of single-object runs.
+
+    ``step_fn(wire_in, wire_out, t, node_lo, node_count)`` runs one tick
+    over the nodes of ``active_nodes_many`` (one launch): each active
+    (node i, object b) reads its incoming wire from ``wire_in[i, b % W]``,
+    writes its own results in place and forwards into ``wire_out[i + 1,
+    b % W]``. The wires are (n, W) + ``slot_shape`` int32 with W =
+    ``window_size(...)``; row 0 stays zero for the whole run.
+    """
+    if n < 1 or num_chunks < 1 or num_objects < 1 or stagger < 1:
+        raise ValueError(f"need n, num_chunks, num_objects and stagger >= 1, got "
+                         f"{n}, {num_chunks}, {num_objects}, {stagger}")
+    W = window_size(num_chunks, num_objects, stagger)
+    wires = [torch.zeros((n, W) + tuple(slot_shape), dtype=torch.int32, device=device)
+             for _ in range(2)]
+    ticks = num_ticks_many(num_chunks, n, num_objects, stagger)
+    for t in range(ticks):
+        lo, count = active_nodes_many(t, n, num_chunks, num_objects, stagger)
         step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
     return ticks

@@ -19,9 +19,10 @@ with one fresh psi/xi coefficient per (node, local block) slot. The resulting
 code is linear and non-systematic; its (n x k) generator matrix is built here
 by unrolling the recursion symbolically over GF(2^l).
 
-Everything here is host numpy: the coefficients are the only drawn state of
+The code itself is host numpy: the coefficients are the only drawn state of
 the system, and ``code_from_reference`` carries them over from another
-implementation's code record.
+implementation's code record. ``encode`` / ``decode`` apply its matrices to
+word tensors with the port's table arithmetic (``gf.gf_matmul``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import dataclasses
 import functools
 
 import numpy as np
+import torch
 
 from repro_torch.core import gf
 from repro_torch.core.codes import base as code_base
@@ -132,6 +134,11 @@ class RapidRAIDCode(code_base.ErasureCode):
         psi = tuple(int(v) for v in rng.integers(1, q, size=n_psi))
         xi = tuple(int(v) for v in rng.integers(1, q, size=n_xi))
         return cls(n=n, k=k, l=l, psi=psi, xi=xi, seed=seed)
+
+
+def _make_canonical(n: int, k: int, l: int = 16, seed: int = 0) -> RapidRAIDCode:
+    """Registry constructor for the ``rapidraid`` family."""
+    return RapidRAIDCode.make(n, k, l=l, seed=seed)
 
 
 def code_from_reference(params: dict) -> RapidRAIDCode:
@@ -257,3 +264,25 @@ def pipeline_encode_local_many(code: RapidRAIDCode, objects: np.ndarray,
                 new_wire[b, i] = x_out
         x_wire = new_wire
     return out, ticks
+
+
+# ---------------------------------------------------------------------------
+# Matrix-form encode / decode (one device; the chain is repro_torch.storage)
+# ---------------------------------------------------------------------------
+
+def encode(code: RapidRAIDCode, data: torch.Tensor) -> torch.Tensor:
+    """Matrix-form encode: data (k, B) words -> codeword blocks (n, B)."""
+    if data.shape[0] != code.k:
+        raise ValueError(f"data {tuple(data.shape)} must have k={code.k} rows")
+    return gf.gf_matmul(code.G, data, code.l)
+
+
+def decode_matrix(code, ids: list[int] | tuple[int, ...]) -> np.ndarray:
+    """(k x len(ids)) matrix D with D @ c[ids] = o. Raises if ids are not decodable."""
+    return code.decode_matrix(ids)
+
+
+def decode(code, ids, shards: torch.Tensor) -> torch.Tensor:
+    """Reconstruct the k original blocks from any decodable shard subset."""
+    D = code.decode_matrix(ids)
+    return gf.gf_matmul(D, shards, code.l)

@@ -3,12 +3,23 @@
 // Both kernels work on packed GF(2^l) words: one 32-bit lane holds 4 words
 // of GF(2^8) or 2 of GF(2^16).
 //
-// One launch is one tick of the pipeline over a (lane tile, object, active
-// node) grid. Node i works chunk ch = t - i of its stream; the kernel works
-// ch out itself from the tick t, so a tick needs no host-to-device copy.
-// The wire between neighbours is a buffer with one row per node: node i
-// reads row i of the incoming buffer and writes row i + 1 of the outgoing
-// one (the host keeps row 0 zero, the head of the chain).
+// One launch is one tick of the pipeline over a (lane tile, window slot,
+// active node) grid. The wire between neighbours is a buffer with one row
+// per node and W window slots a row: node i reads row i of the incoming
+// buffer and writes row i + 1 of the outgoing one (the host keeps row 0
+// zero, the head of the chain). The block (slot w, node i) works out which
+// object b and which chunk ch it works from the tick t itself, so a tick
+// needs no host-to-device copy:
+// - lockstep (stagger 0): slot w is object w, every object at ch = t - i;
+// - staggered (stagger s >= 1, the multi-object archival of paper §VI):
+//   object b's chains start s ticks after object b - 1's, so node i works
+//   chunk ch = t - i - b * s of object b; the objects active at (i, t) are
+//   at most W = min(B_obj, (C - 1) / s + 1) consecutive ones, and object b
+//   rides slot b % W, so no two active objects share a slot and sender and
+//   receiver agree on it. A slot with no active object exits at once.
+// The objects' inputs and outputs are read and written in place through
+// the strides of their object and node (or row) axes, so a batch laid out
+// object-major is never transposed.
 //
 // chain_tick replaces chain_step_kernel / _chain_step_body
 // (src/repro/kernels/gf_encode/kernel.py), the encode tick (Eqs. 3-4):
@@ -82,8 +93,9 @@
 //   aligned, and the shard load and every wire load of a group issued
 //   before the first lookup.
 // - The survivors' shards are read in place: node i's shard is row
-//   shard_rows[i] of the callers' (R, O, Bp) shards; the row table comes by
-//   value in the kernel's parameters.
+//   shard_rows[i] of the callers' shards, laid out (R, B_obj, Bp) or, for
+//   a batch, (B_obj, R, Bp), through the strides of the row and object
+//   axes; the row table comes by value in the kernel's parameters.
 // - Node 0 of a pipelined run reads wire row 0, which the pipeline never
 //   writes: with head_zero the kernel starts node 0 from zero sums and
 //   skips that read. Without it, row 0 is read like any other.
@@ -128,12 +140,42 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// (lane tiles, objects, nodes): each block walks kTilesPerBlock steps of
-// kThreads x VEC lanes
-dim3 tick_grid(long long steps, int O, int node_count) {
+// (lane tiles, window slots, nodes): each block walks kTilesPerBlock steps
+// of kThreads x VEC lanes
+dim3 tick_grid(long long steps, int W, int node_count) {
   const long long tile = static_cast<long long>(kThreads) * kTilesPerBlock;
-  return dim3(static_cast<unsigned>((steps + tile - 1) / tile), static_cast<unsigned>(O),
+  return dim3(static_cast<unsigned>((steps + tile - 1) / tile), static_cast<unsigned>(W),
               static_cast<unsigned>(node_count));
+}
+
+// The object window: how a launch's blocks find their object and chunk.
+struct Window {
+  int W;         // slots (gridDim.y)
+  int n_obj;     // objects in the batch
+  int stagger;   // ticks between two objects' starts; 0: lockstep
+  int C;         // chunks a stream
+};
+
+// ceil(a / s) for s > 0 and any a
+__device__ __forceinline__ int ceil_div(int a, int s) {
+  return a >= 0 ? (a + s - 1) / s : -((-a) / s);
+}
+
+// The object b that slot w of node i works at tick t, and its chunk ch;
+// false where the slot holds no active object (uniform across the block).
+__device__ __forceinline__ bool slot_object(const Window& win, int t, int i, int w,
+                                            int& b, int& ch) {
+  const int d = t - i;
+  if (win.stagger == 0) {
+    b = w;
+    ch = d;
+    return true;
+  }
+  // the first object not yet past its last chunk, then the one in slot w
+  const int first = max(0, ceil_div(d - win.C + 1, win.stagger));
+  b = first + ((w - first) % win.W + win.W) % win.W;
+  ch = d - b * win.stagger;
+  return b < win.n_obj && ch >= 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -179,9 +221,10 @@ __device__ __forceinline__ void split_products(const uint32_t (&e)[32 / L],
   }
 }
 
-// wire_in (>= active rows, O, S), wire_out (fwd_rows, O, S), src (O, R, Bp),
-// out (n, O, Bp), tables (n, MAXB, L/8, 256). Node i writes wire_out row
-// i + 1 when i + 1 < fwd_rows.
+// wire_in (>= active rows, W, S), wire_out (fwd_rows, W, S), src (B_obj, R,
+// Bp), out: object b's row of node i at out + i * out_node + b * out_obj,
+// tables (n, MAXB, L/8, 256). Node i writes wire_out row i + 1 when
+// i + 1 < fwd_rows.
 template <int L, int MAXB, int VEC>
 __global__ void __launch_bounds__(kThreads)
     chain_tick_kernel(const uint32_t* __restrict__ wire_in,
@@ -189,22 +232,23 @@ __global__ void __launch_bounds__(kThreads)
                       const uint32_t* __restrict__ src,
                       uint32_t* __restrict__ out,
                       const uint32_t* __restrict__ tables, const TickNodes nodes,
-                      int O, int R, long long Bp, long long S, int t,
-                      int fwd_rows) {
+                      const Window win, int R, long long Bp, long long S,
+                      long long out_node, long long out_obj, int t, int fwd_rows) {
   constexpr int kWords = MAXB * kSlotWords<L>;
   __shared__ uint32_t s_tab[kWords];
   const int z = static_cast<int>(blockIdx.z);
   const int i = nodes.node[z];
-  const int o = static_cast<int>(blockIdx.y);
-  const int ch = t - i;
+  const int w = static_cast<int>(blockIdx.y);
+  int o, ch;
+  if (!slot_object(win, t, i, w, o, ch)) return;  // an idle window slot
   const uint32_t* tab = tables + static_cast<size_t>(i) * kWords;  // node i's tables
   for (int e = threadIdx.x; e < kWords; e += kThreads) s_tab[e] = tab[e];
   __syncthreads();
 
-  const size_t row = static_cast<size_t>(i) * O + o;
+  const size_t row = static_cast<size_t>(i) * win.W + w;
   const uint32_t* wi = wire_in + row * S;
-  uint32_t* wo = i + 1 < fwd_rows ? wire_out + (row + O) * S : nullptr;
-  uint32_t* dst = out + row * Bp + static_cast<size_t>(ch) * S;
+  uint32_t* wo = i + 1 < fwd_rows ? wire_out + (row + win.W) * S : nullptr;
+  uint32_t* dst = out + i * out_node + o * out_obj + static_cast<long long>(ch) * S;
   const uint32_t* blk[MAXB];
   bool has[MAXB];
 #pragma unroll
@@ -253,23 +297,25 @@ __global__ void __launch_bounds__(kThreads)
                             const uint32_t* __restrict__ src,
                             uint32_t* __restrict__ out,
                             const uint32_t* __restrict__ tables, const TickNodes nodes,
-                            int max_b, int group, int O, int R, long long Bp,
-                            long long S, int t, int fwd_rows) {
+                            int max_b, int group, const Window win, int R, long long Bp,
+                            long long S, long long out_node, long long out_obj, int t,
+                            int fwd_rows) {
   extern __shared__ uint32_t s_tab[];  // `group` slots' tables
   const int z = static_cast<int>(blockIdx.z);
   const int i = nodes.node[z];
-  const int o = static_cast<int>(blockIdx.y);
-  const int ch = t - i;
+  const int w = static_cast<int>(blockIdx.y);
+  int o, ch;
+  if (!slot_object(win, t, i, w, o, ch)) return;  // an idle window slot
   const uint32_t* tab = tables + static_cast<size_t>(i) * max_b * kSlotWords<L>;
   const bool once = group >= max_b;
   if (once) {
     for (int e = threadIdx.x; e < max_b * kSlotWords<L>; e += kThreads) s_tab[e] = tab[e];
     __syncthreads();
   }
-  const size_t row = static_cast<size_t>(i) * O + o;
+  const size_t row = static_cast<size_t>(i) * win.W + w;
   const uint32_t* wi = wire_in + row * S;
-  uint32_t* wo = i + 1 < fwd_rows ? wire_out + (row + O) * S : nullptr;
-  uint32_t* dst = out + row * Bp + static_cast<size_t>(ch) * S;
+  uint32_t* wo = i + 1 < fwd_rows ? wire_out + (row + win.W) * S : nullptr;
+  uint32_t* dst = out + i * out_node + o * out_obj + static_cast<long long>(ch) * S;
   const uint32_t* blocks = src + static_cast<size_t>(o) * R * Bp + static_cast<size_t>(ch) * S;
   const long long steps = S / VEC;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -369,10 +415,11 @@ __device__ __forceinline__ void add_row_products(const uint32_t* s_grp, int pack
   }
 }
 
-// wire_in / wire_out (n, O, rows, S), shards (R, O, Bp), out (O, rows, Bp),
-// tables (n, packs, L/8, 256). Node n - 1 writes `out` instead of the wire.
-// The tables are staged `stage` packs at a time (a multiple of
-// kGroupPacks, or all of them).
+// wire_in / wire_out (n, W, rows, S), shards: object b's shard row r at
+// shards + r * shard_row + b * shard_obj, out (B_obj, rows, Bp), tables
+// (n, packs, L/8, 256). Node n - 1 writes `out` instead of the wire. The
+// tables are staged `stage` packs at a time (a multiple of kGroupPacks, or
+// all of them).
 template <int L, int VEC>
 __global__ void __launch_bounds__(kThreads)
     repair_tick_kernel(const uint32_t* __restrict__ wire_in,
@@ -380,27 +427,29 @@ __global__ void __launch_bounds__(kThreads)
                        const uint32_t* __restrict__ shards,
                        uint32_t* __restrict__ out,
                        const uint32_t* __restrict__ tables, const RepairNodes nodes,
-                       int n, int O, int rows, int stage, long long Bp, long long S,
-                       int t, int node_lo, int head_zero) {
+                       const Window win, int n, int rows, int stage, long long Bp,
+                       long long S, long long shard_row, long long shard_obj, int t,
+                       int node_lo, int head_zero) {
   extern __shared__ uint32_t s_tab[];  // `stage` packs' tables
   constexpr int P = kPackRows<L>;
   const int z = static_cast<int>(blockIdx.z);
   const int i = node_lo + z;
-  const int o = static_cast<int>(blockIdx.y);
-  const int ch = t - i;
+  const int w = static_cast<int>(blockIdx.y);
+  int o, ch;
+  if (!slot_object(win, t, i, w, o, ch)) return;  // an idle window slot
   const int packs = (rows + P - 1) / P;
   const uint32_t* tab = tables + static_cast<size_t>(i) * packs * kPackWords<L>;
-  const uint32_t* loc = shards + (static_cast<size_t>(nodes.shard[z]) * O + o) * Bp +
-                        static_cast<size_t>(ch) * S;
+  const uint32_t* loc = shards + nodes.shard[z] * shard_row + o * shard_obj +
+                        static_cast<long long>(ch) * S;
   const bool read_in = !(head_zero && i == 0);  // uniform across the block
-  const uint32_t* wi = wire_in + (static_cast<size_t>(i) * O + o) * rows * S;
+  const uint32_t* wi = wire_in + (static_cast<size_t>(i) * win.W + w) * rows * S;
   uint32_t* dst;
   long long dst_stride;
   if (i == n - 1) {
     dst = out + static_cast<size_t>(o) * rows * Bp + static_cast<size_t>(ch) * S;
     dst_stride = Bp;
   } else {
-    dst = wire_out + (static_cast<size_t>(i + 1) * O + o) * rows * S;
+    dst = wire_out + (static_cast<size_t>(i + 1) * win.W + w) * rows * S;
     dst_stride = S;
   }
   const long long steps = S / VEC;  // VEC divides S (checked by the launcher)
@@ -446,18 +495,20 @@ __global__ void __launch_bounds__(kThreads)
 template <int L, int MAXB, int VEC>
 int launch_chain_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* src,
                       uint32_t* out, const uint32_t* tab, const TickNodes& nodes,
-                      int max_b, int O, int R, long long Bp, long long S, int t,
-                      int node_count, int fwd_rows, cudaStream_t st) {
-  const dim3 grid = tick_grid(S / VEC, O, node_count);
+                      int max_b, const Window& win, int R, long long Bp, long long S,
+                      long long out_node, long long out_obj, int t, int node_count,
+                      int fwd_rows, cudaStream_t st) {
+  const dim3 grid = tick_grid(S / VEC, win.W, node_count);
   if constexpr (MAXB > 0) {
     chain_tick_kernel<L, MAXB, VEC><<<grid, kThreads, 0, st>>>(
-        wi, wo, src, out, tab, nodes, O, R, Bp, S, t, fwd_rows);
+        wi, wo, src, out, tab, nodes, win, R, Bp, S, out_node, out_obj, t, fwd_rows);
   } else {
     // stage every slot where they fit 48 KB, else the most that do, in turn
     constexpr int slot_bytes = kSlotWords<L> * 4;
     const int group = max_b * slot_bytes <= kStaticSmem ? max_b : kStaticSmem / slot_bytes;
     chain_tick_slots_kernel<L, VEC><<<grid, kThreads, group * slot_bytes, st>>>(
-        wi, wo, src, out, tab, nodes, max_b, group, O, R, Bp, S, t, fwd_rows);
+        wi, wo, src, out, tab, nodes, max_b, group, win, R, Bp, S, out_node, out_obj, t,
+        fwd_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -465,10 +516,11 @@ int launch_chain_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* src,
 template <int L, int MAXB>
 int dispatch_chain_tick(bool vec4, const uint32_t* wi, uint32_t* wo,
                         const uint32_t* src, uint32_t* out, const uint32_t* tab,
-                        const TickNodes& nodes, int max_b, int O, int R, long long Bp,
-                        long long S, int t, int node_count, int fwd_rows,
-                        cudaStream_t st) {
-#define GF_CHAIN_ARGS wi, wo, src, out, tab, nodes, max_b, O, R, Bp, S, t, node_count, fwd_rows, st
+                        const TickNodes& nodes, int max_b, const Window& win, int R,
+                        long long Bp, long long S, long long out_node, long long out_obj,
+                        int t, int node_count, int fwd_rows, cudaStream_t st) {
+#define GF_CHAIN_ARGS wi, wo, src, out, tab, nodes, max_b, win, R, Bp, S, out_node, out_obj, \
+                      t, node_count, fwd_rows, st
   return vec4 ? launch_chain_tick<L, MAXB, 4>(GF_CHAIN_ARGS)
               : launch_chain_tick<L, MAXB, 1>(GF_CHAIN_ARGS);
 #undef GF_CHAIN_ARGS
@@ -477,8 +529,9 @@ int dispatch_chain_tick(bool vec4, const uint32_t* wi, uint32_t* wo,
 template <int L, int VEC>
 int launch_repair_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* shards,
                        uint32_t* out, const uint32_t* tab, const RepairNodes& nodes,
-                       int n, int O, int rows, long long Bp, long long S, int t,
-                       int node_lo, int node_count, int head_zero, cudaStream_t st) {
+                       const Window& win, int n, int rows, long long Bp, long long S,
+                       long long shard_row, long long shard_obj, int t, int node_lo,
+                       int node_count, int head_zero, cudaStream_t st) {
   constexpr int pack_bytes = kPackWords<L> * 4;
   const int packs = (rows + kPackRows<L> - 1) / kPackRows<L>;
   // every pack's tables at once where they fit a block, else stages of
@@ -492,25 +545,37 @@ int launch_repair_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* shards,
         repair_tick_kernel<L, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  const dim3 grid = tick_grid(S / VEC, O, node_count);
+  const dim3 grid = tick_grid(S / VEC, win.W, node_count);
   repair_tick_kernel<L, VEC><<<grid, kThreads, smem, st>>>(
-      wi, wo, shards, out, tab, nodes, n, O, rows, stage, Bp, S, t, node_lo, head_zero);
+      wi, wo, shards, out, tab, nodes, win, n, rows, stage, Bp, S, shard_row, shard_obj, t,
+      node_lo, head_zero);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_window(const Window& win) {
+  return win.W < 1 || win.n_obj < 1 || win.stagger < 0 || win.C < 1 ||
+         (win.stagger == 0 && win.W != win.n_obj);
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers of
-// contiguous int32 tensors, except `slots` and `shard_rows`, host tables;
-// the caller has checked shapes and table values. Each function launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// int32 tensors, contiguous except that `out` of gf_chain_tick and
+// `shards` of gf_repair_tick are laid out by the strides given (in lanes;
+// their rows are contiguous); `slots` and `shard_rows` are host tables.
+// The window is (W slots, n_obj objects, stagger, C chunks), stagger 0
+// being lockstep (W == n_obj). The caller has checked shapes, strides and
+// table values. Each function launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int gf_chain_tick(const void* wire_in, void* wire_out,
                              const void* src, void* out, const void* tables,
-                             const int* slots, int l, int max_b, int O, int R, long long Bp, long long S, int t,
-                             int node_lo, int node_count, int fwd_rows,
-                             void* stream) {
+                             const int* slots, int l, int max_b, int W, int n_obj,
+                             int stagger, int C, int R, long long Bp, long long S,
+                             long long out_node, long long out_obj, int t, int node_lo,
+                             int node_count, int fwd_rows, void* stream) {
+  const Window win{W, n_obj, stagger, C};
   if (node_count < 1 || node_count > kMaxTickNodes || max_b < 1 ||
-      node_count * max_b > kMaxTickSlots)
+      node_count * max_b > kMaxTickSlots || bad_window(win))
     return static_cast<int>(cudaErrorInvalidValue);
   // the active nodes by falling block count (two-block nodes first), each
   // with its slots
@@ -527,15 +592,17 @@ extern "C" int gf_chain_tick(const void* wire_in, void* wire_out,
     }
   }
   // 16-byte lanes when every row of the chunk starts on a 16-byte boundary
-  const bool vec4 = S % 4 == 0 && Bp % 4 == 0 && aligned16(wire_in) &&
-                    aligned16(wire_out) && aligned16(src) && aligned16(out);
+  const bool vec4 = S % 4 == 0 && Bp % 4 == 0 && out_node % 4 == 0 && out_obj % 4 == 0 &&
+                    aligned16(wire_in) && aligned16(wire_out) && aligned16(src) &&
+                    aligned16(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto wi = static_cast<const uint32_t*>(wire_in);
   auto wo = static_cast<uint32_t*>(wire_out);
   auto sr = static_cast<const uint32_t*>(src);
   auto ou = static_cast<uint32_t*>(out);
   auto tb = static_cast<const uint32_t*>(tables);
-#define GF_CHAIN_ARGS vec4, wi, wo, sr, ou, tb, tn, max_b, O, R, Bp, S, t, node_count, fwd_rows, st
+#define GF_CHAIN_ARGS vec4, wi, wo, sr, ou, tb, tn, max_b, win, R, Bp, S, out_node, out_obj, \
+                      t, node_count, fwd_rows, st
   if (l == 8 && max_b == 1) return dispatch_chain_tick<8, 1>(GF_CHAIN_ARGS);
   if (l == 8 && max_b == 2) return dispatch_chain_tick<8, 2>(GF_CHAIN_ARGS);
   if (l == 8) return dispatch_chain_tick<8, 0>(GF_CHAIN_ARGS);  // any max_b
@@ -548,22 +615,26 @@ extern "C" int gf_chain_tick(const void* wire_in, void* wire_out,
 
 extern "C" int gf_repair_tick(const void* wire_in, void* wire_out,
                               const void* shards, void* out, const void* tables,
-                              const int* shard_rows, int l, int n, int O, int rows,
-                              long long Bp, long long S, int t, int node_lo,
+                              const int* shard_rows, int l, int n, int W, int n_obj,
+                              int stagger, int C, int rows, long long Bp, long long S,
+                              long long shard_row, long long shard_obj, int t, int node_lo,
                               int node_count, int head_zero, void* stream) {
-  if (node_count < 1 || node_count > kMaxTickNodes || rows < 1)
+  const Window win{W, n_obj, stagger, C};
+  if (node_count < 1 || node_count > kMaxTickNodes || rows < 1 || bad_window(win))
     return static_cast<int>(cudaErrorInvalidValue);
   RepairNodes rn;
   for (int z = 0; z < node_count; ++z) rn.shard[z] = shard_rows[node_lo + z];
-  const bool vec4 = S % 4 == 0 && Bp % 4 == 0 && aligned16(wire_in) &&
-                    aligned16(wire_out) && aligned16(shards) && aligned16(out);
+  const bool vec4 = S % 4 == 0 && Bp % 4 == 0 && shard_row % 4 == 0 && shard_obj % 4 == 0 &&
+                    aligned16(wire_in) && aligned16(wire_out) && aligned16(shards) &&
+                    aligned16(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto wi = static_cast<const uint32_t*>(wire_in);
   auto wo = static_cast<uint32_t*>(wire_out);
   auto sh = static_cast<const uint32_t*>(shards);
   auto ou = static_cast<uint32_t*>(out);
   auto tb = static_cast<const uint32_t*>(tables);
-#define GF_REPAIR_ARGS wi, wo, sh, ou, tb, rn, n, O, rows, Bp, S, t, node_lo, node_count, head_zero, st
+#define GF_REPAIR_ARGS wi, wo, sh, ou, tb, rn, win, n, rows, Bp, S, shard_row, shard_obj, t, \
+                       node_lo, node_count, head_zero, st
   if (l == 8) return vec4 ? launch_repair_tick<8, 4>(GF_REPAIR_ARGS)
                           : launch_repair_tick<8, 1>(GF_REPAIR_ARGS);
   if (l == 16) return vec4 ? launch_repair_tick<16, 4>(GF_REPAIR_ARGS)

@@ -41,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.core import gf
+from repro_torch.core import gf, pipeline
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "gf_tick.cu", CSRC / "gf_mxu.cu", CSRC / "gf_module.cu")
@@ -108,11 +108,11 @@ def load_library() -> ctypes.CDLL:
         path.with_suffix(".log").write_text(log)
     lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gf_chain_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                  i64, i64, i32, i32, i32, i32, vp]
+    lib.gf_chain_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                  i32, i64, i64, i64, i64, i32, i32, i32, i32, vp]
     lib.gf_chain_tick.restype = i32
-    lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                   i64, i64, i32, i32, i32, i32, vp]
+    lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                   i32, i64, i64, i64, i64, i32, i32, i32, i32, vp]
     lib.gf_repair_tick.restype = i32
     lib.gf_encode_mxu.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
     lib.gf_encode_mxu.restype = i32
@@ -132,10 +132,11 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-def _check_tensors(name: str, dtypes: dict | None = None,
+def _check_tensors(name: str, dtypes: dict | None = None, strided: tuple[str, ...] = (),
                    **tensors: torch.Tensor) -> torch.device:
     """Same CUDA device, the expected dtype (``dtypes[key]``, else int32)
-    and contiguity for every tensor; returns the device."""
+    and contiguity for every tensor (for the ``strided`` ones, contiguous
+    rows: a unit stride in the last dimension); returns the device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
@@ -146,13 +147,24 @@ def _check_tensors(name: str, dtypes: dict | None = None,
         want = (dtypes or {}).get(key, torch.int32)
         if t.dtype != want:
             raise ValueError(f"{name}: {key} must be {want}, got {t.dtype}")
-        if not t.is_contiguous():
+        if key in strided:
+            if t.dim() and t.shape[-1] > 1 and t.stride(-1) != 1:
+                raise ValueError(f"{name}: the rows of {key} must be contiguous")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     return device
 
 
 def _check_tick(name: str, l: int, t: int, num_chunks: int, node_lo: int,
-                node_count: int, n: int, O: int, S: int, Bp: int) -> None:
+                node_count: int, n: int, n_obj: int, W: int, stagger: int, S: int,
+                Bp: int) -> None:
+    """The tick's geometry: the field, the chunking, the node range inside
+    the chain, and the object window. Every node of the range must lie
+    within the run's span at tick t: 0 <= t - i < (n_obj - 1) * stagger +
+    num_chunks (for lockstep, stagger 0, that is: it has a chunk); with
+    stagger > num_chunks a node inside the span may fall between two
+    objects, and its blocks do nothing. The wire has one slot per object
+    in lockstep, ``pipeline.window_size`` slots when staggered."""
     if l not in SUPPORTED_L:
         raise ValueError(f"{name}: unsupported field GF(2^{l})")
     if S < 1 or S * num_chunks != Bp:
@@ -161,11 +173,19 @@ def _check_tick(name: str, l: int, t: int, num_chunks: int, node_lo: int,
     if not (0 <= node_lo and 1 <= node_count and node_lo + node_count <= n):
         raise ValueError(f"{name}: nodes [{node_lo}, {node_lo + node_count}) "
                          f"outside a chain of {n}")
-    if not (0 <= t - (node_lo + node_count - 1) and t - node_lo < num_chunks):
+    if stagger < 0:
+        raise ValueError(f"{name}: stagger must be >= 0 (0: lockstep), got {stagger}")
+    span = (n_obj - 1) * stagger + num_chunks
+    if not (0 <= t - (node_lo + node_count - 1) and t - node_lo < span):
         raise ValueError(f"{name}: a node in [{node_lo}, {node_lo + node_count}) "
-                         f"has no chunk at tick {t} of {num_chunks} chunks")
-    if O < 1 or O > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: {O} objects exceed the grid")
+                         f"has no chunk at tick {t} of {n_obj} objects x "
+                         f"{num_chunks} chunks at stagger {stagger}")
+    want = n_obj if stagger == 0 else pipeline.window_size(num_chunks, n_obj, stagger)
+    if W != want:
+        raise ValueError(f"{name}: wires of {W} slots, want {want} for {n_obj} objects "
+                         f"at stagger {stagger}")
+    if W < 1 or W > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: {W} window slots exceed the grid")
 
 
 def _raise_on(name: str, rc: int) -> None:
@@ -264,6 +284,26 @@ def _check_shard_rows(name: str, shard_rows, n_rows: int) -> np.ndarray:
     return np.ascontiguousarray(rows, dtype=np.int32)
 
 
+_CHECKED_TABLES: dict[int, tuple] = {}   # id -> (table, bound, checked copy)
+
+
+def _checked_table(check, name: str, table, bound: int) -> np.ndarray:
+    """``check(name, table, bound)``, done once for a frozen table: the
+    entry points pass the same read-only host table (cached per code, plan
+    or chain length) to every tick, and a min/max on every call is host
+    time each launch pays. A table counts as frozen when it is a numpy array
+    that owns its data and is not writeable; it must not be unfrozen."""
+    hit = _CHECKED_TABLES.get(id(table))
+    if hit is not None and hit[0] is table and hit[1] == bound:
+        return hit[2]
+    checked = check(name, table, bound)
+    if isinstance(table, np.ndarray) and table.base is None and not table.flags.writeable:
+        if len(_CHECKED_TABLES) >= 1024:
+            _CHECKED_TABLES.clear()
+        _CHECKED_TABLES[id(table)] = (table, bound, checked)
+    return checked
+
+
 def launch_ranges(node_lo: int, node_count: int, per: int) -> list[tuple[int, int]]:
     """The (first node, node count) of each launch of a tick over
     [node_lo, node_lo + node_count), at most ``per`` nodes a launch."""
@@ -273,38 +313,47 @@ def launch_ranges(node_lo: int, node_count: int, per: int) -> list[tuple[int, in
 
 def chain_tick(wire_in: torch.Tensor, wire_out: torch.Tensor, src: torch.Tensor,
                slots, out: torch.Tensor, tables: torch.Tensor, l: int, t: int,
-               num_chunks: int, node_lo: int, node_count: int) -> None:
+               num_chunks: int, node_lo: int, node_count: int, stagger: int = 0) -> None:
     """One encode tick on the card (replaces ``chain_step_kernel``).
 
-    Shapes: ``src`` (O, R, Bp) the objects' packed blocks, read in place;
-    ``slots`` (n, max_b) host integers, node i's slot s holding block
-    ``slots[i, s]`` or nothing (-1), any max_b up to 512; ``out`` (n, O,
-    Bp); ``tables`` (n, max_b, l // 8, 256) from ``product_tables``;
-    ``wire_in`` (>= node_lo + node_count, O, S) with S * num_chunks == Bp;
-    ``wire_out`` (n or n + 1, O, S). Node i of [node_lo, node_lo +
-    node_count) reads ``wire_in[i]`` and chunk t - i of its blocks, writes
-    that chunk of ``out[i]`` and, where that row exists, ``wire_out[i + 1]``:
-    an n-row ``wire_out`` drops the last node's wire, which no node reads.
+    Shapes: ``src`` (B_obj, R, Bp) the objects' packed blocks, read in
+    place; ``slots`` (n, max_b) host integers, node i's slot s holding block
+    ``slots[i, s]`` or nothing (-1), any max_b up to 512; ``out`` (n, B_obj,
+    Bp), any strides with contiguous rows (a (B_obj, n, Bp) batch passes
+    ``out.transpose(0, 1)`` and is written in place); ``tables`` (n, max_b,
+    l // 8, 256) from ``product_tables``; ``wire_in`` (>= node_lo +
+    node_count, W, S) with S * num_chunks == Bp; ``wire_out`` (n or n + 1,
+    W, S). Node i of [node_lo, node_lo + node_count) reads ``wire_in[i]``,
+    writes its chunk of ``out[i]`` and, where that row exists,
+    ``wire_out[i + 1]``: an n-row ``wire_out`` drops the last node's wire,
+    which no node reads.
+
+    ``stagger`` 0 is lockstep: W == B_obj, slot w is object w, and every
+    object is at chunk t - i. ``stagger`` s >= 1 staggers the objects'
+    chains s ticks apart: W == ``pipeline.window_size(num_chunks, B_obj,
+    s)``, node i works chunk t - i - b * s of each object b that has one,
+    in wire slot b % W; slots with no such object do nothing.
 
     A launch takes at most ``min(256, 512 // max_b)`` nodes, since the slot
     table travels in its parameters; a tick over more nodes is several
     launches over node sub-ranges, and ``chain_tick.launches`` counts each.
     """
-    device = _check_tensors("chain_tick", wire_in=wire_in, wire_out=wire_out,
-                            src=src, out=out, tables=tables)
+    device = _check_tensors("chain_tick", strided=("out",), wire_in=wire_in,
+                            wire_out=wire_out, src=src, out=out, tables=tables)
     if src.dim() != 3:
-        raise ValueError(f"chain_tick: src {tuple(src.shape)} must be (O, R, Bp)")
-    O, R, Bp = src.shape
-    slots = _check_slots("chain_tick", slots, R)
+        raise ValueError(f"chain_tick: src {tuple(src.shape)} must be (B_obj, R, Bp)")
+    n_obj, R, Bp = src.shape
+    slots = _checked_table(_check_slots, "chain_tick", slots, R)
     n, max_b = slots.shape
-    S = wire_in.shape[-1]
-    _check_tick("chain_tick", l, t, num_chunks, node_lo, node_count, n, O, S, Bp)
-    if out.shape != (n, O, Bp) or tables.shape != (n, max_b, l // 8, TABLE_BYTES):
+    S, W = wire_in.shape[-1], wire_in.shape[1] if wire_in.dim() == 3 else 0
+    _check_tick("chain_tick", l, t, num_chunks, node_lo, node_count, n, n_obj, W,
+                stagger, S, Bp)
+    if out.shape != (n, n_obj, Bp) or tables.shape != (n, max_b, l // 8, TABLE_BYTES):
         raise ValueError(f"chain_tick: out {tuple(out.shape)} / tables "
                          f"{tuple(tables.shape)} do not match {n} nodes x "
                          f"{max_b} slots of src {tuple(src.shape)}")
     last = node_lo + node_count
-    if (wire_in.dim() != 3 or wire_in.shape[0] < last or wire_in.shape[1] != O
+    if (wire_in.dim() != 3 or wire_in.shape[0] < last
             or wire_out.dim() != 3 or wire_out.shape[0] not in (n, n + 1)
             or wire_out.shape[1:] != wire_in.shape[1:]):
         raise ValueError(f"chain_tick: wires {tuple(wire_in.shape)} -> "
@@ -318,7 +367,8 @@ def chain_tick(wire_in: torch.Tensor, wire_out: torch.Tensor, src: torch.Tensor,
         for lo, count in launch_ranges(node_lo, node_count, per):
             rc = lib.gf_chain_tick(wire_in.data_ptr(), wire_out.data_ptr(),
                                    src.data_ptr(), out.data_ptr(), tables.data_ptr(),
-                                   slots.ctypes.data, l, max_b, O, R, Bp, S, t,
+                                   slots.ctypes.data, l, max_b, W, n_obj, stagger,
+                                   num_chunks, R, Bp, S, out.stride(0), out.stride(1), t,
                                    lo, count, wire_out.shape[0], stream)
             _raise_on("chain_tick", rc)
             chain_tick.launches += 1
@@ -330,44 +380,48 @@ chain_tick.launches = 0
 def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
                 shards: torch.Tensor, shard_rows, out: torch.Tensor,
                 tables: torch.Tensor, l: int, t: int, num_chunks: int,
-                node_lo: int, node_count: int, head_zero: bool = False) -> None:
+                node_lo: int, node_count: int, head_zero: bool = False,
+                stagger: int = 0) -> None:
     """One decode or repair tick on the card (replaces ``repair_step_kernel``).
 
-    Shapes: ``shards`` (R, O, Bp) the callers' packed shards, read in place;
-    ``shard_rows`` (n,) host integers, node i's shard being row
-    ``shard_rows[i]``; ``tables`` (n, repair_packs(rows, l), l // 8, 256)
-    from ``repair_tables``, node i's coefficients for each of the ``rows``
-    sums; ``out`` (O, rows, Bp); ``wire_in`` and ``wire_out`` (n, O, rows,
-    S) with S * num_chunks == Bp. Node i adds its products to the partial
-    sums in ``wire_in[i]`` and writes them to ``wire_out[i + 1]``, or, for
-    the last node n - 1, to chunk t - i of ``out``. With ``head_zero`` the
-    caller says ``wire_in[0]`` is zero (as the pipeline keeps it): node 0
-    starts from zero sums and that row is not read.
+    Shapes: ``shards`` (R, B_obj, Bp) the callers' packed shards, read in
+    place, any strides with contiguous rows (a (B_obj, R, Bp) batch passes
+    ``shards.transpose(0, 1)``); ``shard_rows`` (n,) host integers, node
+    i's shard being row ``shard_rows[i]``; ``tables`` (n,
+    repair_packs(rows, l), l // 8, 256) from ``repair_tables``, node i's
+    coefficients for each of the ``rows`` sums; ``out`` (B_obj, rows, Bp);
+    ``wire_in`` and ``wire_out`` (n, W, rows, S) with S * num_chunks ==
+    Bp. Node i adds its products to the partial sums in ``wire_in[i]`` and
+    writes them to ``wire_out[i + 1]``, or, for the last node n - 1, to its
+    chunk of ``out``. With ``head_zero`` the caller says ``wire_in[0]`` is
+    zero (as the pipeline keeps it): node 0 starts from zero sums and that
+    row is not read. ``stagger`` and W as in ``chain_tick``.
 
     Any rows: the tables are staged in shared memory in turn where they do
     not fit at once. A launch takes at most 256 nodes (the row table
     travels in its parameters); a tick over more nodes is several launches,
     and ``repair_tick.launches`` counts each.
     """
-    device = _check_tensors("repair_tick", wire_in=wire_in, wire_out=wire_out,
-                            shards=shards, out=out, tables=tables)
+    device = _check_tensors("repair_tick", strided=("shards",), wire_in=wire_in,
+                            wire_out=wire_out, shards=shards, out=out, tables=tables)
     if shards.dim() != 3 or out.dim() != 3:
         raise ValueError(f"repair_tick: shards {tuple(shards.shape)} / out "
-                         f"{tuple(out.shape)} must be (R, O, Bp) / (O, rows, Bp)")
-    R, O, Bp = shards.shape
+                         f"{tuple(out.shape)} must be (R, B_obj, Bp) / (B_obj, rows, Bp)")
+    R, n_obj, Bp = shards.shape
     rows = out.shape[1]
-    shard_rows = _check_shard_rows("repair_tick", shard_rows, R)
+    shard_rows = _checked_table(_check_shard_rows, "repair_tick", shard_rows, R)
     n = shard_rows.shape[0]
-    S = wire_in.shape[-1]
-    _check_tick("repair_tick", l, t, num_chunks, node_lo, node_count, n, O, S, Bp)
-    if (rows < 1 or out.shape != (O, rows, Bp)
+    S, W = wire_in.shape[-1], wire_in.shape[1] if wire_in.dim() == 4 else 0
+    _check_tick("repair_tick", l, t, num_chunks, node_lo, node_count, n, n_obj, W,
+                stagger, S, Bp)
+    if (rows < 1 or out.shape != (n_obj, rows, Bp)
             or tables.shape != (n, repair_packs(rows, l), l // 8, TABLE_BYTES)):
         raise ValueError(f"repair_tick: tables {tuple(tables.shape)} / out "
                          f"{tuple(out.shape)} do not match {n} nodes over shards "
                          f"{tuple(shards.shape)}")
-    if wire_in.shape != (n, O, rows, S) or wire_out.shape != wire_in.shape:
+    if wire_in.shape != (n, W, rows, S) or wire_out.shape != wire_in.shape:
         raise ValueError(f"repair_tick: wires {tuple(wire_in.shape)} -> "
-                         f"{tuple(wire_out.shape)} must be {(n, O, rows, S)}")
+                         f"{tuple(wire_out.shape)} must be {(n, W, rows, S)}")
     if wire_in.data_ptr() == wire_out.data_ptr():
         raise ValueError("repair_tick: wire_in and wire_out must not alias")
     lib = load_library()
@@ -376,8 +430,9 @@ def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
         for lo, count in launch_ranges(node_lo, node_count, MAX_TICK_NODES):
             rc = lib.gf_repair_tick(wire_in.data_ptr(), wire_out.data_ptr(),
                                     shards.data_ptr(), out.data_ptr(), tables.data_ptr(),
-                                    shard_rows.ctypes.data, l, n, O, rows, Bp, S, t,
-                                    lo, count, int(head_zero), stream)
+                                    shard_rows.ctypes.data, l, n, W, n_obj, stagger,
+                                    num_chunks, rows, Bp, S, shards.stride(0),
+                                    shards.stride(1), t, lo, count, int(head_zero), stream)
             _raise_on("repair_tick", rc)
             repair_tick.launches += 1
 

@@ -1,7 +1,8 @@
 """Public kernel ops: the CUDA kernel for CUDA tensors, the plain version for CPU.
 
 ``chain_tick`` / ``repair_tick`` run one pipeline tick over the node axis
-(the form ``repro_torch.storage.chain`` drives). ``chain_step`` /
+(the form ``repro_torch.storage.chain`` and ``storage.multi`` drive), with
+the objects in lockstep or staggered over a window. ``chain_step`` /
 ``repair_step`` keep the single-node shapes of the JAX package's ops at the
 public boundary — one object, or a batch with a leading object axis — and
 run as a one-node, one-chunk tick.
@@ -36,23 +37,24 @@ def _route(x: torch.Tensor, cuda_fn, cpu_fn):
 
 
 def chain_tick(wire_in, wire_out, src, slots, out, tables, l: int, t: int,
-               num_chunks: int, node_lo: int, node_count: int) -> None:
-    """One encode tick over nodes [node_lo, node_lo + node_count); see
+               num_chunks: int, node_lo: int, node_count: int, stagger: int = 0) -> None:
+    """One encode tick over nodes [node_lo, node_lo + node_count), lockstep
+    (``stagger`` 0) or over a staggered object window; see
     ``kernel.chain_tick`` for shapes. Writes ``out`` and ``wire_out`` in place."""
     fn = _route(src, kernel.chain_tick, ref.chain_tick_ref)
     fn(wire_in, wire_out, src, slots, out, tables, l, t, num_chunks, node_lo,
-       node_count)
+       node_count, stagger)
 
 
 def repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l: int, t: int,
                 num_chunks: int, node_lo: int, node_count: int,
-                head_zero: bool = False) -> None:
-    """One decode or repair tick over nodes [node_lo, node_lo + node_count);
-    see ``kernel.repair_tick`` for shapes. Writes ``out`` or ``wire_out`` in
-    place."""
+                head_zero: bool = False, stagger: int = 0) -> None:
+    """One decode or repair tick over nodes [node_lo, node_lo + node_count),
+    lockstep or staggered; see ``kernel.repair_tick`` for shapes. Writes
+    ``out`` or ``wire_out`` in place."""
     fn = _route(shards, kernel.repair_tick, ref.repair_tick_ref)
     fn(wire_in, wire_out, shards, shard_rows, out, tables, l, t, num_chunks,
-       node_lo, node_count, head_zero)
+       node_lo, node_count, head_zero, stagger)
 
 
 def chain_step(x_in: torch.Tensor, local: torch.Tensor, bp_psi: torch.Tensor,

@@ -94,9 +94,27 @@ def repair_step_ref(x_in: torch.Tensor, local: torch.Tensor, coeffs: np.ndarray,
                         for r, c in enumerate(np.asarray(coeffs))])
 
 
-def _tick_nodes(t: int, node_lo: int, node_count: int, device):
+def _tick_objects(t: int, node_lo: int, node_count: int, W: int, n_obj: int,
+                  num_chunks: int, stagger: int, device):
+    """The tick's nodes (a,) and, for each (node, window slot), the object
+    b it works, its chunk ch and whether it has one, each (a, W).
+
+    Lockstep (stagger 0): slot w is object w at chunk t - i. Staggered:
+    node i works chunk t - i - b * stagger of object b, in slot b % W; the
+    first object of the window is the first whose chunk is below
+    num_chunks, and slot w holds the one of the next W that is w mod W.
+    """
     nodes = torch.arange(node_lo, node_lo + node_count, device=device)
-    return nodes, t - nodes
+    d = (t - nodes)[:, None]
+    w = torch.arange(W, device=device)[None, :]
+    if stagger == 0:
+        b = w.expand(node_count, W)
+        ch = d.expand(node_count, W)
+    else:
+        first = (-torch.div(num_chunks - 1 - d, stagger, rounding_mode="floor")).clamp(min=0)
+        b = first + torch.remainder(w - first, W)
+        ch = d - b * stagger
+    return nodes, b, ch, (b < n_obj) & (ch >= 0) & (ch < num_chunks)
 
 
 def table_planes(tables: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -109,12 +127,13 @@ def table_planes(tables: torch.Tensor, l: int) -> tuple[torch.Tensor, torch.Tens
 def chain_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
                    src: torch.Tensor, slots, out: torch.Tensor,
                    tables: torch.Tensor, l: int, t: int, num_chunks: int,
-                   node_lo: int, node_count: int) -> None:
+                   node_lo: int, node_count: int, stagger: int = 0) -> None:
     """Plain version of ``kernel.chain_tick``: same operands, same in-place
-    writes. Gathers each active node's blocks by indexing ``src`` and does
-    the JAX kernel's bit-plane arithmetic: every mask ``(x >> b) & LSB``
-    feeds both the xi (kept) and the psi (forwarded) accumulator, over all
-    active nodes at once.
+    writes. Gathers each (node, window slot)'s blocks by indexing ``src``
+    and does the JAX kernel's bit-plane arithmetic: every mask
+    ``(x >> b) & LSB`` feeds both the xi (kept) and the psi (forwarded)
+    accumulator, over all active nodes and slots at once; a slot with no
+    object at this tick writes nothing.
 
     Of the tables it reads only the single-bit entries (``table_planes``),
     which are the bit-planes ``c * alpha^b`` themselves; the kernel reads
@@ -122,26 +141,31 @@ def chain_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
     ``chip_smoke.py`` and the tests hold them against ``gf.bitplane_table``
     of the coefficients.
     """
-    O, R, Bp = src.shape
+    n_obj, R, Bp = src.shape
     slots = torch.tensor(np.asarray(slots), dtype=torch.int64)
     n, max_b = slots.shape
-    S = Bp // num_chunks
-    nodes, ch = _tick_nodes(t, node_lo, node_count, src.device)
+    W, S = wire_in.shape[1], Bp // num_chunks
+    nodes, b, ch, active = _tick_objects(t, node_lo, node_count, W, n_obj, num_chunks,
+                                         stagger, src.device)
     idx = slots[node_lo:node_lo + node_count].to(src.device)       # (a, max_b)
-    blocks = src.view(O, R, num_chunks, S)[:, idx.clamp(min=0), ch[:, None]]
-    blocks = blocks.permute(1, 0, 2, 3) * (idx >= 0)[:, None, :, None]  # (a, O, max_b, S)
+    blocks = src.unflatten(-1, (num_chunks, S))[
+        b.clamp(max=n_obj - 1)[:, :, None], idx.clamp(min=0)[:, None, :],
+        ch.clamp(0, num_chunks - 1)[:, :, None]]                     # (a, W, max_b, S)
+    blocks = blocks * (idx >= 0)[:, None, :, None]
     bp_psi, bp_xi = table_planes(tables[nodes], l)                # (a, max_b, l)
-    x = wire_in[node_lo:node_lo + node_count]                      # (a, O, S)
+    x = wire_in[node_lo:node_lo + node_count]                      # (a, W, S)
     c = x.clone()
     xo = x.clone()
     for s in range(max_b):
-        for b in range(l):
-            m = (blocks[:, :, s] >> b) & gf.LSB_MASK[l]
-            c ^= m * bp_xi[:, s, b][:, None, None]
-            xo ^= m * bp_psi[:, s, b][:, None, None]
-    out.view(n, O, num_chunks, S)[nodes, :, ch] = c
-    fwd = min(node_count, wire_out.shape[0] - 1 - node_lo)   # nodes whose wire row exists
-    wire_out[node_lo + 1:node_lo + fwd + 1] = xo[:fwd]
+        for bit in range(l):
+            m = (blocks[:, :, s] >> bit) & gf.LSB_MASK[l]
+            c ^= m * bp_xi[:, s, bit][:, None, None]
+            xo ^= m * bp_psi[:, s, bit][:, None, None]
+    a, w = active.nonzero(as_tuple=True)
+    out.unflatten(-1, (num_chunks, S))[nodes[a], b[a, w], ch[a, w]] = c[a, w]
+    # nodes whose wire row exists forward (an n-row wire_out drops the last)
+    a, w = (active & (nodes + 1 < wire_out.shape[0])[:, None]).nonzero(as_tuple=True)
+    wire_out[nodes[a] + 1, w] = xo[a, w]
 
 
 def repair_table_planes(tables: torch.Tensor, l: int, rows: int) -> torch.Tensor:
@@ -157,34 +181,39 @@ def repair_table_planes(tables: torch.Tensor, l: int, rows: int) -> torch.Tensor
 def repair_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
                     shards: torch.Tensor, shard_rows, out: torch.Tensor,
                     tables: torch.Tensor, l: int, t: int, num_chunks: int,
-                    node_lo: int, node_count: int, head_zero: bool = False) -> None:
+                    node_lo: int, node_count: int, head_zero: bool = False,
+                    stagger: int = 0) -> None:
     """Plain version of ``kernel.repair_tick``: same operands, same in-place
-    writes. Gathers each active node's shard chunk through the row table and
-    does the JAX kernel's bit-plane arithmetic, one mask per bit shared by
-    all rows; the last node of the chain writes the output chunk instead of
-    the wire. With ``head_zero`` node 0 starts from zero sums.
+    writes. Gathers each (node, window slot)'s shard chunk through the row
+    table and does the JAX kernel's bit-plane arithmetic, one mask per bit
+    shared by all rows; the last node of the chain writes the output chunk
+    instead of the wire, and a slot with no object at this tick writes
+    nothing. With ``head_zero`` node 0 starts from zero sums.
 
     Of the tables it reads only the single-bit entries
     (``repair_table_planes``), which are the bit-planes ``D[r] * alpha^b``;
     the tests and ``chip_smoke.py`` hold those against
     ``gf.bitplane_table`` of the coefficients.
     """
-    R, O, Bp = shards.shape
+    R, n_obj, Bp = shards.shape
     n, rows = tables.shape[0], out.shape[1]
-    S = Bp // num_chunks
-    nodes, ch = _tick_nodes(t, node_lo, node_count, shards.device)
+    W, S = wire_in.shape[1], Bp // num_chunks
+    nodes, b, ch, active = _tick_objects(t, node_lo, node_count, W, n_obj, num_chunks,
+                                         stagger, shards.device)
     idx = torch.tensor(np.asarray(shard_rows)[node_lo:node_lo + node_count],
                        dtype=torch.int64, device=shards.device)
     bp = repair_table_planes(tables[nodes], l, rows)             # (a, rows, l)
-    acc = wire_in[node_lo:node_lo + node_count].clone()          # (a, O, rows, S)
+    acc = wire_in[node_lo:node_lo + node_count].clone()          # (a, W, rows, S)
     if head_zero and node_lo == 0:
         acc[0] = 0
-    blocks = shards.view(R, O, num_chunks, S)[idx, :, ch]        # (a, O, S)
-    for b in range(l):
-        m = (blocks >> b) & gf.LSB_MASK[l]
-        acc ^= m[:, :, None, :] * bp[:, :, b][:, None, :, None]
-    fwd = min(node_count, n - 1 - node_lo)   # nodes that forward a wire
-    wire_out[node_lo + 1:node_lo + fwd + 1] = acc[:fwd]
-    if fwd < node_count:
-        # the last node finishes the stream: its sums are the output chunk
-        out.view(O, rows, num_chunks, S)[:, :, t - (n - 1)] = acc[-1]
+    blocks = shards.unflatten(-1, (num_chunks, S))[
+        idx[:, None], b.clamp(max=n_obj - 1), ch.clamp(0, num_chunks - 1)]   # (a, W, S)
+    for bit in range(l):
+        m = (blocks >> bit) & gf.LSB_MASK[l]
+        acc ^= m[:, :, None, :] * bp[:, :, bit][:, None, :, None]
+    last = (nodes == n - 1)[:, None]
+    a, w = (active & ~last).nonzero(as_tuple=True)
+    wire_out[nodes[a] + 1, w] = acc[a, w]
+    # the last node finishes the stream: its sums are the output chunk
+    a, w = (active & last).nonzero(as_tuple=True)
+    out.unflatten(-1, (num_chunks, S))[b[a, w], :, ch[a, w]] = acc[a, w]

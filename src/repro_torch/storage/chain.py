@@ -149,11 +149,13 @@ def _words(x, l: int, rows: int, what: str, device: torch.device) -> torch.Tenso
 
 
 def encode_operands(code: ErasureCode, data_packed: torch.Tensor):
-    """Operands of the encode ticks for ``data_packed`` (k, Bp) int32:
-    ``src`` (1, k, Bp), a view of the data (the ticks read the replica
-    blocks in place), ``slots`` (n, max_b) int32 on the host, and the
-    product tables (n, max_b, l // 8, 256) int32 on the data's device."""
-    return (data_packed[None], placement_slots(code),
+    """Operands of the encode ticks for ``data_packed``, one object (k, Bp)
+    or a batch (B_obj, k, Bp) of int32: ``src`` (B_obj, k, Bp), a view of
+    the data (the ticks read the replica blocks in place), ``slots`` (n,
+    max_b) int32 on the host, and the product tables (n, max_b, l // 8,
+    256) int32 on the data's device."""
+    src = data_packed[None] if data_packed.dim() == 2 else data_packed
+    return (src, placement_slots(code),
             device_tables(product_tables(code), data_packed.device))
 
 
@@ -212,6 +214,15 @@ def decode_tables(code: ErasureCode, ids: tuple[int, ...]) -> np.ndarray:
     return tables
 
 
+@functools.lru_cache(maxsize=None)
+def identity_rows(n: int) -> np.ndarray:
+    """The row table of a chain whose node i reads shard i, (n,) int32,
+    frozen (the ticks check a frozen table once)."""
+    rows = np.arange(n, dtype=np.int32)
+    rows.setflags(write=False)
+    return rows
+
+
 def decode_operands(code: ErasureCode, ids, device: torch.device) -> torch.Tensor:
     """``decode_tables`` as int32 on ``device``."""
     return device_tables(decode_tables(code, tuple(int(i) for i in ids)), device)
@@ -242,7 +253,7 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
     num_chunks = _check_chunking(shards.shape[1], l, num_chunks, "pipelined_decode")
     tables = decode_operands(code, ids, dev)
     packed = gf.pack_u32(shards, l)[:, None]         # (n_alive, 1, Bp), a view
-    rows = np.arange(n_alive, dtype=np.int32)        # node i reads shard i
+    rows = identity_rows(n_alive)                    # node i reads shard i
     Bp = packed.shape[-1]
     out = torch.empty((1, k, Bp), dtype=torch.int32, device=dev)  # every chunk written once
 

@@ -30,10 +30,15 @@ set are cached, so warm calls do no host algebra and build no tables.
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks and the encode run the kernels' plain PyTorch versions.
 
-Not ported yet: ``pipelined_repair_many`` (multi-object), streaming in
-super-chunks (``superchunk_words=`` / ``sink=``), the tuning behind
-``num_chunks=None`` (here the hand-tuned ``DEFAULT_NUM_CHUNKS``) and
-``mesh=``.
+``pipelined_repair_many`` repairs the same lost rows of B objects (every
+object archived on a failed node set) as staggered reverse chains over the
+same helpers, one ``repair_tick`` launch a tick over the object window
+(``repro_torch.storage.multi``), reading the helpers' shards in place from
+the (B_obj, len(ids), B) batch.
+
+Not ported yet: streaming in super-chunks (``superchunk_words=`` /
+``sink=``), the tuning behind ``num_chunks=None`` and ``stagger=None`` (here
+the hand-tuned ``DEFAULT_NUM_CHUNKS`` and a stagger of 1) and ``mesh=``.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ import torch
 from repro_torch.core import fault_tolerance, gf, pipeline
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
+from repro_torch.storage import multi
 from repro_torch.storage.chain import (_check_chunking, _resolve_device, _words,
                                        column_bitplanes, device_tables)
 
@@ -157,6 +163,44 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
     pipeline.software_pipeline(step, h, num_chunks, (h, 1, rows, Bp // num_chunks),
                                device=dev)
     return gf.unpack_u32(out[0], l)
+
+
+def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
+                          num_chunks: int | None = None, stagger: int | None = None,
+                          device=None) -> torch.Tensor:
+    """B_obj concurrent repairs as staggered reverse chains over one helper set.
+
+    ids/missing are shared across objects (after a node failure every
+    object archived on that node set lost the same rows). ``shards``
+    (B_obj, len(ids), B) words, numpy or a tensor -> repaired
+    (B_obj, |missing|, B) words on ``device``. Each tick is one
+    ``repair_tick`` launch over the object window; each chain position
+    reads its helper's shard of object b in place from ``shards``.
+    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``, ``stagger=None``
+    takes 1. Raises ValueError if the survivors are not decodable.
+    """
+    dev = _resolve_device(device)
+    l = code.l
+    if not code.positionwise:
+        raise ValueError(f"pipelined_repair_many: {code.family} shards are "
+                         f"sub-packetized — use code.repair_np")
+    shards = multi.batch_words(shards, l, len(ids), "pipelined_repair_many", "shards",
+                               "len(ids)", dev)
+    num_chunks = _check_chunking(shards.shape[2], l, num_chunks, "pipelined_repair_many")
+    stagger = multi.check_stagger(stagger, "pipelined_repair_many")
+    rows_table, tables = repair_operands(code, missing, ids, dev)
+    packed = gf.pack_u32(shards, l).transpose(0, 1)   # (len(ids), B_obj, Bp), a view
+    h, rows = len(rows_table), len(missing)
+    B_obj, Bp = shards.shape[0], packed.shape[-1]
+    out = torch.empty((B_obj, rows, Bp), dtype=torch.int32, device=dev)  # every chunk written once
+
+    def step(wire_in, wire_out, t, lo, count):
+        ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
+                        num_chunks, lo, count, head_zero=True, stagger=stagger)
+
+    pipeline.staggered_pipeline(step, h, num_chunks, (rows, Bp // num_chunks),
+                                num_objects=B_obj, stagger=stagger, device=dev)
+    return gf.unpack_u32(out, l)
 
 
 def star_repair(code: ErasureCode, ids, shards, missing, device=None) -> torch.Tensor:

@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Time two builds of the decode and repair tick (``repair_tick``) in one process.
 
-    python3 tools/ab_repair_tick.py --old FILE [--seed 0] [--reps 5]
+    python3 tools/ab_repair_tick.py --old FILE [--old-api planes|rows] [--seed 0] [--reps 5]
 
-FILE is an earlier ``gf_tick.cu`` whose repair tick reads gathered shards
-and bit-planes: its C entry point is ``gf_repair_tick(wire_in, wire_out,
-local, out, bp, l, n, O, rows, Bp, S, t, num_chunks, node_lo, node_count,
-stream)`` over (n, O, Bp) shards in chain order and (n, rows, l) planes
-(e.g. ``git show 772ced6:src/repro_torch/kernels/gf_encode/csrc/gf_tick.cu``,
-put under the gitignored ``build/``). It is built with nvcc into a second
-library beside the package's own. At ``chip_smoke.py``'s shapes — a (16,11)
-RapidRAID code over GF(2^16), 2^25 words a block, 8 chunks, 5 nodes lost
-(the first decodable 5-node pattern in a seeded order) — the 18 ticks of
-the decode from the 11 survivors and the 18 ticks of the pipelined repair
-of the 5 lost blocks run through the old build (on the helpers' shards
-gathered in chain order, as the old repair made them) and through the
+FILE is an earlier ``gf_tick.cu`` (put under the gitignored ``build/``),
+built with nvcc into a second library beside the package's own. Its
+repair tick takes one of two C interfaces:
+
+- ``planes`` (the default; e.g. ``git show 772ced6:...``):
+  ``gf_repair_tick(wire_in, wire_out, local, out, bp, l, n, O, rows, Bp,
+  S, t, num_chunks, node_lo, node_count, stream)`` over (n, O, Bp) shards
+  gathered in chain order and (n, rows, l) planes;
+- ``rows`` (e.g. ``git show 019af0c:...``, the lockstep tick before the
+  object window): ``gf_repair_tick(wire_in, wire_out, shards, out,
+  tables, shard_rows, l, n, O, rows, Bp, S, t, node_lo, node_count,
+  head_zero, stream)``, the package's operands without the window's
+  arguments.
+
+At ``chip_smoke.py``'s shapes — a (16,11) RapidRAID code over GF(2^16),
+2^25 words a block, 8 chunks, 5 nodes lost (the first decodable 5-node
+pattern in a seeded order) — the 18 ticks of the decode from the 11
+survivors and the 18 ticks of the pipelined repair of the 5 lost blocks run
+through the old build (on the helpers' shards gathered in chain order, as
+the old repair made them, or on the package's operands) and through the
 package's kernel (reading the shards in place through the row table, node
-0's zero head row not read) in turns: old, new, new, old. Every result is
+0's zero head row not read) in turns: old, new, new, old. With ``rows``,
+the package's kernel is also called straight through ctypes, as the old
+one is (``new_direct``: old, new, new_direct, new_direct, new, old), so the
+two builds' launches cost the host the same. Every result is
 checked against the object or the lost codeword rows. Prints one JSON line
 with the CUDA-event medians and the card's name and power limit. Needs one
 CUDA card.
@@ -45,13 +56,15 @@ from repro_torch.storage import chain, repair  # noqa: E402
 N, K, L, B, NUM_CHUNKS, LOST = 16, 11, 16, 1 << 25, 8, 5
 
 
-def build_old(source: Path) -> ctypes.CDLL:
-    out = kernel.BUILD_DIR / "ab_old_repair" / "libgf_tick_old.so"
+def build_old(source: Path, api: str) -> ctypes.CDLL:
+    out = kernel.BUILD_DIR / "ab_old_repair" / f"libgf_tick_old_{api}.so"
     kernel.build_shared([source], out)
     lib = ctypes.CDLL(str(out))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64,
-                                   i32, i32, i32, i32, vp]
+    lib.gf_repair_tick.argtypes = (
+        [vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i32, i32, i32, i32, vp]
+        if api == "planes" else
+        [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i32, i32, i32, i32, vp])
     lib.gf_repair_tick.restype = i32
     return lib
 
@@ -93,6 +106,8 @@ def first_decodable_loss(code, seed: int) -> list[int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True, help="the earlier gf_tick.cu")
+    ap.add_argument("--old-api", choices=("planes", "rows"), default="planes",
+                    help="the earlier repair tick's C interface")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -102,8 +117,8 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    old = build_old(args.old)
-    kernel.load_library()
+    old = build_old(args.old, args.old_api)
+    lib = kernel.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     code = rapidraid.RapidRAIDCode.make(N, K, l=L, seed=args.seed)
@@ -134,17 +149,23 @@ def main() -> int:
         code, lost, ids, dev)
 
     result = {"card": smi, "shape": f"({N},{K}) GF(2^{L}), {B} words, {NUM_CHUNKS} chunks, "
-              f"lost {lost}", "reps": args.reps}
+              f"lost {lost}", "old_api": args.old_api, "reps": args.reps}
     for name, c in cases.items():
         h, rows = len(ids) if name == "decode" else len(helpers), c["rows"]
         bp = torch.from_numpy(np.ascontiguousarray(c["old_bp"], dtype=np.int32)).to(dev)
         outs = {w: torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)
-                for w in ("old", "new")}
+                for w in ("old", "new", "new_direct")}
 
         def old_tick(wi, wo, t, lo, count, c=c, bp=bp, outs=outs, h=h, rows=rows):
-            rc = old.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), c["old_local"].data_ptr(),
-                                    outs["old"].data_ptr(), bp.data_ptr(), L, h, 1, rows, Bp,
-                                    S, t, NUM_CHUNKS, lo, count, stream)
+            if args.old_api == "planes":
+                rc = old.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), c["old_local"].data_ptr(),
+                                        outs["old"].data_ptr(), bp.data_ptr(), L, h, 1, rows,
+                                        Bp, S, t, NUM_CHUNKS, lo, count, stream)
+            else:
+                rc = old.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), shards_p.data_ptr(),
+                                        outs["old"].data_ptr(), c["tables"].data_ptr(),
+                                        c["rows_table"].ctypes.data, L, h, 1, rows, Bp, S, t,
+                                        lo, count, 1, stream)
             if rc:
                 raise RuntimeError(f"old repair_tick: CUDA error {rc}")
 
@@ -152,18 +173,33 @@ def main() -> int:
             kernel.repair_tick(wi, wo, shards_p[:, None], c["rows_table"], outs["new"],
                                c["tables"], L, t, NUM_CHUNKS, lo, count, head_zero=True)
 
+        def direct_tick(wi, wo, t, lo, count, c=c, outs=outs, h=h, rows=rows):
+            # the package's kernel straight through ctypes, as the old one is
+            rc = lib.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), shards_p.data_ptr(),
+                                    outs["new_direct"].data_ptr(), c["tables"].data_ptr(),
+                                    c["rows_table"].ctypes.data, L, h, 1, 1, 0, NUM_CHUNKS,
+                                    rows, Bp, S, Bp, Bp, t, lo, count, 1, stream)
+            if rc:
+                raise RuntimeError(f"repair_tick: CUDA error {rc}")
+
         runs = {"old": ticks(h, (h, 1, rows, S), dev, old_tick),
                 "new": ticks(h, (h, 1, rows, S), dev, new_tick)}
-        times = {"old": [], "new": []}
-        for which in ("old", "new", "new", "old"):
+        turns = ("old", "new", "new", "old")
+        if args.old_api == "rows":
+            runs["new_direct"] = ticks(h, (h, 1, rows, S), dev, direct_tick)
+            turns = ("old", "new", "new_direct", "new_direct", "new", "old")
+        else:
+            del outs["new_direct"]
+        times = {which: [] for which in runs}
+        for which in turns:
             times[which].append(median_ms(runs[which], args.reps))
         torch.cuda.synchronize()
         for which, out in outs.items():
             if not torch.equal(out[0], c["want"]):
                 raise RuntimeError(f"{which} repair_tick: the {name} differs from its want")
-        result[f"{name}_old_ms"], result[f"{name}_new_ms"] = times["old"], times["new"]
+        result.update({f"{name}_{which}_ms": ms for which, ms in times.items()})
         print(f"repair_tick {name} ({pipeline.num_ticks(NUM_CHUNKS, h)} ticks, {rows} rows): "
-              f"old {times['old']} ms, new {times['new']} ms (old, new, new, old)")
+              f"{times} ms in turns {turns}")
     print(json.dumps(result))
     return 0
 
