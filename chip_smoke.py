@@ -76,6 +76,35 @@ last line:
    and an MBR (6,4) generator against ``encode_np``; an LRC block repaired
    from its local group by ``pipelined_repair`` and ``star_repair`` against
    ``repair_np``.
+11. Streaming at a size users stream: the (16,11) code over an object of
+   11 blocks of 2^28 words (5.5 GiB), made on the card from the seed and
+   kept in pinned host memory, at a 1 GiB device budget
+   (``streaming.superchunk_words_for``: 2^21 words a stripe, 128
+   stripes). ``pipelined_encode``, ``pipelined_decode`` from the 11
+   survivors and ``pipelined_repair`` of the 5 lost rows stream it with a
+   ``sink`` that hashes each output row incrementally (sha256), each twice:
+   the first call with the counters at 0 just before and read just after
+   (stripes x ticks, plus the one warm-up run a program makes before it
+   captures its graphs), the second building no program. Each digest is
+   held against that of the monolithic call on the card, and the stripe's
+   device footprint (``streaming.measure_footprint`` of a program's first
+   stripe) against the budget. Printed: walls, the pinned h2d and d2h
+   rates on a 256 MiB buffer, the bound max(in-bytes / h2d, out-bytes /
+   d2h, the ticks' time), and the overlap (the serial sum of copies and
+   ticks over the wall). Then phase 3's 704 MiB object streamed at 2^20 and
+   2^22 words a stripe, its digests held against phase 3's codeword.
+12. The archive at the paper's size: a 16-node ``NodeStore`` in a
+   temporary directory takes phase 3's object by ``hot_save``; then
+   ``archive_step`` on the card, the loss of nodes ``[5, 6, 7, 8, 14]``,
+   ``restore_blocks_ex`` (degraded, the object bit-exact; its decode runs on
+   the host, the JAX package's route), ``repair`` (every coded blob's
+   digest equals the manifest's), ``read_range_ex`` of 1 MiB across a block
+   boundary, the same ``archive_step`` streamed at 4 MiB stripes into a
+   second store (blobs and ``coded_digests`` identical), and
+   ``archive_many`` / ``repair_many`` over 8 objects of 11 blocks of 6 MiB
+   at stagger 1 against one ``archive_step`` / ``repair`` each. Each wall is
+   printed with the share the kernels take (CUDA events around each
+   launch or graph replay). The store is removed at the end.
 
 Then one JSON line with every kernel's numbers over all of the run's
 launches (the staggered launches of phase 8 in rows of their own), and
@@ -86,11 +115,17 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
+import hashlib
 import itertools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,9 +134,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import classical, codes, fault_tolerance, gf, pipeline, rapidraid  # noqa: E402
+from repro_torch.core import (classical, codes, fault_tolerance, gf, jitcache,  # noqa: E402
+                              pipeline, rapidraid, streaming)
 from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
-from repro_torch.storage import atomic, chain, multi, repair  # noqa: E402
+from repro_torch.storage import archive, atomic, chain, multi, object_store, repair  # noqa: E402
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet and
 # Hopper white paper): HBM3 bandwidth, the non-tensor INT32 rate
@@ -127,6 +163,14 @@ MANY_STAGGERS = (1, 4, 8)                # the first is the counted run's
 TICK_SHAPES = ((16, 1 << 22), (64, 1 << 18))   # phase 9: (objects, words a block)
 TICK_STAGGERS = (1, 3, 8, NUM_CHUNKS + 1)
 FAMILY_CODES = (("lrc", 16, 11, 16), ("mbr", 6, 4, 8))   # phase 10: (family, n, k, l)
+STREAM_BLOCK_WORDS = 1 << 28             # phase 11: 11 blocks of 2^28 words, 5.5 GiB
+STREAM_BUDGET = 1 << 30                  # phase 11: device bytes a stripe may take
+STREAM_WIDTHS = (1 << 20, 1 << 22)       # phase 11: the 704 MiB object's stripe widths
+COPY_RATE_BYTES = 256 << 20              # phase 11: the buffer the copy rates are taken on
+ARCHIVE_STRIPE_BYTES = 4 << 20           # phase 12: 2^21 words, phase 11's stripe width
+ARCHIVE_OBJECTS = 8                      # phase 12: archive_many / repair_many batch
+ARCHIVE_BLOCK_BYTES = 6 << 20            # phase 12: each of the batch's 11 blocks
+READ_RANGE_BYTES = 1 << 20               # phase 12: read_range_ex across a block boundary
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -1070,6 +1114,360 @@ def phase_families(dev, seed: int) -> None:
               f"star_repair == repair_np")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: streaming, the archive
+# ---------------------------------------------------------------------------
+
+
+class KernelTimer:
+    """Device time of what an entry point runs on the card while ``active``:
+    CUDA events around each tick launch, ``encode_packed`` call and graph
+    replay (each span also holds any wait of the card for the launch), and
+    the host seconds spent staging stripes into pinned memory. Nothing is
+    recorded while a graph is being captured."""
+
+    def __init__(self):
+        self.spans: list[tuple[torch.cuda.Event, torch.cuda.Event]] = []
+        self.stage_s = 0.0
+
+    def _timed(self, fn):
+        def run(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.spans.append((start, end))
+            return out
+        return run
+
+    def _staged(self, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            self.stage_s += time.perf_counter() - t0
+        return run
+
+    @contextlib.contextmanager
+    def active(self):
+        saved = {name: getattr(ops, name) for name in ("chain_tick", "repair_tick", "encode_packed")}
+        replay, stage = kernel.Graph.replay, streaming._Stripes._stage
+        try:
+            for name, fn in saved.items():
+                setattr(ops, name, self._timed(fn))
+            kernel.Graph.replay = self._timed(replay)
+            streaming._Stripes._stage = self._staged(stage)
+            yield self
+        finally:
+            for name, fn in saved.items():
+                setattr(ops, name, fn)
+            kernel.Graph.replay, streaming._Stripes._stage = replay, stage
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in self.spans)
+
+
+class RowHasher:
+    """A streaming sink: one incremental sha256 per output row, the rows of
+    each stripe hashed in parallel (hashlib releases the interpreter lock);
+    stripes must arrive in order. ``host_s`` is the time spent in it."""
+
+    def __init__(self, pool: concurrent.futures.Executor, rows: int):
+        self.pool, self.next, self.host_s = pool, 0, 0.0
+        self.sha = [hashlib.sha256() for _ in range(rows)]
+
+    def __call__(self, s: int, out: np.ndarray) -> None:
+        check(s == self.next, f"stripe {s} retired out of order (want {self.next})")
+        self.next += 1
+        t0 = time.perf_counter()
+        list(self.pool.map(lambda r: self.sha[r].update(out[r]), range(len(self.sha))))
+        self.host_s += time.perf_counter() - t0
+
+    def digests(self) -> list[str]:
+        return [h.hexdigest() for h in self.sha]
+
+
+def host_digests(pool, rows) -> list[str]:
+    """sha256 of each host row (numpy), in parallel."""
+    return list(pool.map(lambda r: hashlib.sha256(r).hexdigest(), rows))
+
+
+def card_digests(pool, words: torch.Tensor) -> list[str]:
+    """sha256 of each row of (rows, B) words on the card, each row copied to
+    the host through its int32 lanes."""
+    lanes = gf.pack_u32(words, L)
+    futs = [pool.submit(lambda a: hashlib.sha256(a).hexdigest(), lanes[r].cpu().numpy())
+            for r in range(lanes.shape[0])]
+    return [f.result() for f in futs]
+
+
+def copy_rates(dev) -> tuple[float, float]:
+    """(h2d, d2h) bytes/s of a pinned ``COPY_RATE_BYTES`` buffer, medians of 5."""
+    host = torch.empty(COPY_RATE_BYTES // 4, dtype=torch.int32, pin_memory=True)
+    card = torch.empty_like(host, device=dev)
+    h2d = median_ms(lambda: card.copy_(host, non_blocking=True), 5)
+    d2h = median_ms(lambda: host.copy_(card, non_blocking=True), 5)
+    return COPY_RATE_BYTES / h2d * 1e3, COPY_RATE_BYTES / d2h * 1e3
+
+
+def phase_streaming(code, lost, ids, data_np, cw704_digests, dev, seed: int, pool) -> None:
+    """Phase 11: encode, decode and repair of a 5.5 GiB host object streamed
+    through a 1 GiB device budget, each digest against the monolithic call on
+    the card; the stripe footprint; the 704 MiB object at two more widths."""
+    nc, B, h = NUM_CHUNKS, STREAM_BLOCK_WORDS, len(ids)
+    sc = streaming.superchunk_words_for(STREAM_BUDGET, code, nc)
+    check(sc == 1 << 21, f"superchunk_words_for(1 GiB) = {sc}, the JAX package's 2^21")
+    plan = streaming.plan_stream(B, sc, l=L, num_chunks=nc)
+    S = plan.num_superchunks
+    h2d_rate, d2h_rate = copy_rates(dev)
+    print(f"streaming: object of {K} blocks of {B} words ({K * B * 2 / 2**30:.1f} GiB) in pinned "
+          f"host memory, budget {STREAM_BUDGET / 2**30:.0f} GiB -> {sc} words a stripe "
+          f"(modeled {streaming.estimate_stripe_bytes(code, sc) / 2**20:.1f} MiB), {S} stripes; "
+          f"pinned copies of {COPY_RATE_BYTES >> 20} MiB: h2d {h2d_rate / 1e9:.2f} GB/s, "
+          f"d2h {d2h_rate / 1e9:.2f} GB/s ({smi('name,power.limit')})")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    t0 = time.perf_counter()
+    obj_host = torch.empty((K, B // 2), dtype=torch.int32, pin_memory=True)
+    for j in range(K):                            # made on the card a block at a time
+        obj_host[j].copy_(rand_i32(gen, (B // 2,), dev))
+    obj_digests = host_digests(pool, obj_host.numpy())
+    made_s = time.perf_counter() - t0
+
+    # the monolithic calls on the card: the digests the streams must give
+    data = obj_host.to(dev)
+    cw_p = gf.pack_u32(chain.pipelined_encode(code, gf.unpack_u32(data, L), nc), L)
+    del data
+    enc_digests = card_digests(pool, gf.unpack_u32(cw_p, L))
+    lost_digests = [enc_digests[i] for i in lost]
+    shards_host = torch.empty((h, B // 2), dtype=torch.int32, pin_memory=True)
+    for r, i in enumerate(ids):
+        shards_host[r].copy_(cw_p[i])
+    shards = gf.unpack_u32(cw_p[torch.tensor(ids, device=dev)], L)
+    del cw_p
+    torch.cuda.empty_cache()
+    check(card_digests(pool, chain.pipelined_decode(code, ids, shards, nc)) == obj_digests,
+          "monolithic decode on the card == the object")
+    check(card_digests(pool, repair.pipelined_repair(code, ids, shards, lost, nc)) == lost_digests,
+          "monolithic repair on the card == the lost rows")
+    del shards
+    torch.cuda.empty_cache()
+    print(f"streaming: object made and hashed in {made_s:.1f} s; monolithic encode, decode and "
+          f"repair on the card hashed row by row")
+
+    obj_words, shard_words = obj_host.view(torch.uint16), shards_host.view(torch.uint16)
+    helpers, _ = fault_tolerance.repair_plan(code, lost, ids)
+    runs = (
+        ("pipelined_encode", lambda sink: chain.pipelined_encode(
+            code, obj_words, nc, superchunk_words=sc, sink=sink), K, N, enc_digests,
+         "chain_tick", pipeline.num_ticks(nc, N)),
+        ("pipelined_decode", lambda sink: chain.pipelined_decode(
+            code, ids, shard_words, nc, superchunk_words=sc, sink=sink), h, K, obj_digests,
+         "repair_tick", pipeline.num_ticks(nc, h)),
+        ("pipelined_repair", lambda sink: repair.pipelined_repair(
+            code, ids, shard_words, lost, nc, superchunk_words=sc, sink=sink), h, len(lost),
+         lost_digests, "repair_tick", pipeline.num_ticks(nc, len(helpers))),
+    )
+    for name, run, rows_in, rows_out, want, kern, ticks in runs:
+        misses = jitcache.stats()["misses"]
+        sink = RowHasher(pool, rows_out)
+        torch.cuda.synchronize()
+        kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        check(run(sink) is None, f"streamed {name} with a sink returns None")
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernel.launch_counts()
+        check(counts == only(**{kern: (S + 1) * ticks}),
+              f"streamed {name} launches {counts}, want {S} stripes + 1 warm-up x {ticks}")
+        check(jitcache.stats()["misses"] == misses + 1, f"streamed {name} builds one program")
+        check(sink.digests() == want, f"streamed {name} == the monolithic call on the card")
+        sink, timer = RowHasher(pool, rows_out), KernelTimer()
+        kernel.reset_launch_counts()
+        with timer.active():
+            t0 = time.perf_counter()
+            run(sink)
+            torch.cuda.synchronize()
+            wall_ms_ = (time.perf_counter() - t0) * 1e3
+        ticks_ms = timer.ms()
+        check(jitcache.stats()["misses"] == misses + 1, f"the second streamed {name} builds nothing")
+        check(kernel.launch_counts() == only(**{kern: S * ticks}), f"warm streamed {name} launches")
+        check(sink.digests() == want, f"second streamed {name} == the monolithic call")
+        in_ms = rows_in * B * 2 / h2d_rate * 1e3
+        out_ms = rows_out * B * 2 / d2h_rate * 1e3
+        bound = max(in_ms, out_ms, ticks_ms)
+        print(f"streamed {name}: {S} stripes, {S * ticks} {kern} launches in {S} graph replays; "
+              f"first call {first_ms:.1f} ms (builds, warms, captures), warm {wall_ms_:.1f} ms "
+              f"wall ({rows_in * B * 2 / wall_ms_ / 1e6:.2f} GB/s of input); ticks {ticks_ms:.1f} "
+              f"ms, copies in {in_ms:.1f} / out {out_ms:.1f} ms at the measured rates; bound "
+              f"{bound:.1f} ms ({100 * bound / wall_ms_:.0f}% of the wall); overlap "
+              f"{(in_ms + out_ms + ticks_ms) / wall_ms_:.2f} (serial sum / wall); host staging "
+              f"{timer.stage_s * 1e3:.1f} ms, sink hashing {sink.host_s * 1e3:.1f} ms; digests "
+              f"== the monolithic call ({smi('name,power.limit')})")
+
+    # the stripe's device footprint, from programs not yet built
+    jitcache.clear()
+    torch.cuda.empty_cache()
+    def drop(s, out):
+        pass
+
+    feet = {
+        "encode": streaming.measure_footprint(lambda: streaming.execute(
+            streaming.plan_stream(sc, None, l=L, num_chunks=nc),
+            chain.encode_program(code, sc, nc), lambda s: obj_words[:, :sc], drop)),
+        "decode": streaming.measure_footprint(lambda: chain.pipelined_decode(
+            code, ids, shard_words[:, :2 * sc], nc, superchunk_words=sc, sink=drop)),
+        "repair": streaming.measure_footprint(lambda: repair.pipelined_repair(
+            code, ids, shard_words[:, :2 * sc], lost, nc, superchunk_words=sc, sink=drop)),
+    }
+    for name, foot in feet.items():
+        check(foot is not None and foot <= STREAM_BUDGET,
+              f"streamed {name}'s stripe footprint {foot} within {STREAM_BUDGET}")
+    print("streaming footprint above what was allocated before, program built in the "
+          "measurement: " + ", ".join(f"{name} {foot / 2**20:.1f} MiB" for name, foot in
+                                      feet.items()) + f" (budget {STREAM_BUDGET >> 20} MiB)")
+    del obj_host, shards_host, obj_words, shard_words
+    jitcache.clear()
+    torch.cuda.empty_cache()
+
+    # phase 3's object at two more stripe widths
+    for width in STREAM_WIDTHS:
+        sink = RowHasher(pool, N)
+        t0 = time.perf_counter()
+        chain.pipelined_encode(code, data_np, nc, superchunk_words=width, sink=sink)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(sink.digests() == cw704_digests, f"704 MiB streamed at {width} words == phase 3")
+        print(f"704 MiB object streamed at {width} words a stripe "
+              f"({data_np.shape[1] // width} stripes): {ms:.1f} ms first call, digests == "
+              f"phase 3's monolithic codeword")
+
+
+def phase_archive(code, data_np, lost, cw704_digests, dev, seed: int) -> None:
+    """Phase 12: the store's lifecycle on phase 3's object, then a batch of
+    8 objects; each step timed with the kernels' share of its wall."""
+    acfg = archive.ArchiveConfig(n=N, k=K, l=L, seed=seed, num_chunks=NUM_CHUNKS)
+    check(acfg.code().cache_key == code.cache_key, "the archive's code is phase 3's")
+    blocks = data_np.view(np.uint8)                  # (11, 2^26) bytes
+    block_bytes = blocks.shape[1]
+    root = tempfile.mkdtemp(prefix="chip_smoke_store-")
+    print(f"archive: {N}-node NodeStore under a temporary directory, object of {K} blocks of "
+          f"{block_bytes} bytes ({blocks.nbytes / 2**20:.0f} MiB), lost nodes {lost} "
+          f"({smi('name,power.limit')})")
+
+    def timed(what: str, fn, **want_launches):
+        timer = KernelTimer()
+        torch.cuda.synchronize()
+        kernel.reset_launch_counts()
+        with timer.active():
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        k_ms, counts = timer.ms(), kernel.launch_counts()
+        if want_launches:
+            check(counts == only(**want_launches), f"{what} launches {counts}, want {want_launches}")
+        print(f"{what}: {wall:.1f} ms wall, kernels {k_ms:.3f} ms ({100 * k_ms / wall:.3f}% of "
+              f"the wall), launches {({n: c for n, c in counts.items() if c})}")
+        return out
+
+    def same_blobs(a, b, ma, mb, steps_):
+        for step in steps_:
+            for pos in range(N):
+                rel = archive.ARC.format(step=step, i=pos)
+                check(a.get(ma[step]["perm"][pos], rel) == b.get(mb[step]["perm"][pos], rel),
+                      f"step {step} coded blob {pos} identical in both stores")
+
+    def blobs_match_manifest(store, step):
+        m = archive.get_manifest(store, step)
+        for pos in range(N):
+            raw = store.get(m["perm"][pos], archive.ARC.format(step=step, i=pos))
+            check(object_store.digest(raw) == m["coded_digests"][pos],
+                  f"step {step} blob {pos} digest == the manifest's")
+
+    try:
+        store = object_store.NodeStore(os.path.join(root, "a"), N)
+        timed("hot_save", lambda: archive.hot_save(store, 1, blocks, acfg))
+        m = timed("archive_step", lambda: archive.archive_step(store, 1, acfg),
+                  chain_tick=pipeline.num_ticks(NUM_CHUNKS, N))
+        check(m["coded_digests"] == [d[:16] for d in cw704_digests],
+              "coded digests == phase 3's codeword rows")
+        for i in lost:
+            store.fail_node(m["perm"][i])
+        res = timed("restore_blocks_ex (host decode)", lambda: archive.restore_blocks_ex(store, 1, acfg))
+        check(res.served_from == "degraded" and np.array_equal(res.data, blocks),
+              f"degraded restore ({res.served_from}) == the object")
+        del res
+        rows = timed("repair", lambda: archive.repair(store, 1, acfg),
+                     repair_tick=pipeline.num_ticks(NUM_CHUNKS, K))
+        check(rows == lost, f"repaired rows {rows}")
+        blobs_match_manifest(store, 1)
+        off = block_bytes - READ_RANGE_BYTES // 2
+        rr = timed("read_range_ex 1 MiB across blocks 0|1",
+                   lambda: archive.read_range_ex(store, 1, acfg, off, READ_RANGE_BYTES))
+        check(rr.data == blocks.reshape(-1)[off:off + READ_RANGE_BYTES].tobytes(),
+              "read_range_ex == the object's bytes")
+        store2 = object_store.NodeStore(os.path.join(root, "b"), N)
+        archive.hot_save(store2, 1, blocks, acfg)
+        misses = jitcache.stats()["misses"]
+        stripes = block_bytes // ARCHIVE_STRIPE_BYTES
+        m2 = timed(f"archive_step streamed at {ARCHIVE_STRIPE_BYTES >> 20} MiB stripes",
+                   lambda: archive.archive_step(store2, 1, acfg,
+                                                superchunk_bytes=ARCHIVE_STRIPE_BYTES))
+        built = jitcache.stats()["misses"] - misses
+        check(kernel.launch_counts() == only(chain_tick=(stripes + built) *
+                                             pipeline.num_ticks(NUM_CHUNKS, N)),
+              f"streamed archive launches {kernel.launch_counts()}")
+        check(m2["coded_digests"] == m["coded_digests"]
+              and m2["streaming"]["num_superchunks"] == stripes,
+              "streamed archive: coded digests == the monolithic ones")
+        same_blobs(store, store2, {1: archive.get_manifest(store, 1)}, {1: m2}, [1])
+        shutil.rmtree(os.path.join(root, "a"))
+        shutil.rmtree(os.path.join(root, "b"))
+
+        # a batch of 8 objects, against one archive_step / repair each
+        gen = torch.Generator(device=dev).manual_seed(seed + 12)
+        steps = list(range(1, ARCHIVE_OBJECTS + 1))
+        objs = rand_i32(gen, (ARCHIVE_OBJECTS, K, ARCHIVE_BLOCK_BYTES // 4), dev).cpu().numpy()
+        objs = objs.view(np.uint8)
+        batch = object_store.NodeStore(os.path.join(root, "batch"), N)
+        single = object_store.NodeStore(os.path.join(root, "single"), N)
+        for step, obj in zip(steps, objs):
+            archive.hot_save(batch, step, obj, acfg)
+            archive.hot_save(single, step, obj, acfg)
+        mb = timed(f"archive_many of {ARCHIVE_OBJECTS} objects of {K} x "
+                   f"{ARCHIVE_BLOCK_BYTES >> 20} MiB, stagger 1",
+                   lambda: archive.archive_many(batch, steps, acfg, stagger=1),
+                   chain_tick=pipeline.num_ticks_many(NUM_CHUNKS, N, ARCHIVE_OBJECTS, 1))
+        ms_ = timed(f"archive_step x {ARCHIVE_OBJECTS}",
+                    lambda: [archive.archive_step(single, s, acfg) for s in steps],
+                    chain_tick=ARCHIVE_OBJECTS * pipeline.num_ticks(NUM_CHUNKS, N))
+        check([x["coded_digests"] for x in mb] == [x["coded_digests"] for x in ms_],
+              "archive_many coded digests == one archive_step each")
+        same_blobs(batch, single, dict(zip(steps, mb)), dict(zip(steps, ms_)), steps)
+        for store_ in (batch, single):
+            for i in lost:
+                store_.fail_node(i)
+        got = timed(f"repair_many of {ARCHIVE_OBJECTS} objects, stagger 1",
+                    lambda: archive.repair_many(batch, steps, acfg, stagger=1),
+                    repair_tick=pipeline.num_ticks_many(NUM_CHUNKS, K, ARCHIVE_OBJECTS, 1))
+        want = timed(f"repair x {ARCHIVE_OBJECTS}",
+                     lambda: [archive.repair(single, s, acfg) for s in steps],
+                     repair_tick=ARCHIVE_OBJECTS * pipeline.num_ticks(NUM_CHUNKS, K))
+        check(got == want == [lost] * ARCHIVE_OBJECTS, f"repaired rows {got} / {want}")
+        for step in steps:
+            blobs_match_manifest(batch, step)
+        same_blobs(batch, single, {s: archive.get_manifest(batch, s) for s in steps},
+                   {s: archive.get_manifest(single, s) for s in steps}, steps)
+        print(f"checks: archive, degraded restore, repair, range read and the streamed "
+              f"archive of the 704 MiB object; archive_many / repair_many of "
+              f"{ARCHIVE_OBJECTS} objects == one call each, blob for blob")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1080,6 +1478,12 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     seed = args.seed
+    with concurrent.futures.ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
+        return run_phases(dev, seed, pool)
+
+
+def run_phases(dev, seed: int, pool) -> int:
+    """Phases 1-12, then the kernels line and the device line."""
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1159,6 +1563,7 @@ def main() -> int:
           f"({(dec_peak - dec_resident) / 2**30:.3f} GiB above the resident inputs)")
     print(f"checks: decode == data, codeword == plain matvec, "
           f"{len(starts)} windows == host gf_matmul_np")
+    cw704_digests = card_digests(pool, cw)        # held by phases 11 and 12
 
     # -- phase 4: the main path's ticks, kernel vs plain version --------------
     Bp, S = B // 2, B // 2 // NUM_CHUNKS
@@ -1259,6 +1664,12 @@ def main() -> int:
 
     # -- phase 10: the LRC and MBR code families at small shapes --------------
     phase_families(dev, seed)
+
+    # -- phase 11: streaming a 5.5 GiB object through a 1 GiB budget ----------
+    phase_streaming(code, lost, ids, data_np, cw704_digests, dev, seed, pool)
+
+    # -- phase 12: the archive lifecycle at the paper's size ------------------
+    phase_archive(code, data_np, lost, cw704_digests, dev, seed)
 
     rows = []
     for name, w in work.items():

@@ -66,21 +66,32 @@ def active_nodes(t: int, n: int, num_chunks: int) -> tuple[int, int]:
     return lo, hi - lo + 1
 
 
+def _wires(shape: tuple[int, ...], device: torch.device, wires) -> list[torch.Tensor]:
+    """The two wire buffers of a run: ``wires`` where the caller keeps them
+    (a captured graph binds their addresses), else two zeroed ones."""
+    if wires is None:
+        return [torch.zeros(shape, dtype=torch.int32, device=device) for _ in range(2)]
+    if len(wires) != 2 or any(tuple(w.shape) != tuple(shape) for w in wires):
+        raise ValueError(f"need two wire buffers of shape {tuple(shape)}")
+    return list(wires)
+
+
 def software_pipeline(step_fn: Callable, n: int, num_chunks: int,
                       wire_shape: tuple[int, ...], *,
-                      device: torch.device) -> int:
+                      device: torch.device, wires=None) -> int:
     """Run the chain pipeline over n nodes; returns the number of ticks.
 
     ``step_fn(wire_in, wire_out, t, node_lo, node_count)`` runs one tick:
     each active node i reads its incoming wire from ``wire_in[i]``, writes
     its own results in place, and forwards into ``wire_out[i + 1]``.
     ``wire_shape`` is the (rows, ...) shape of one int32 wire buffer; its
-    row 0 stays zero for the whole run.
+    row 0 stays zero for the whole run. ``wires``: the caller's two buffers
+    of that shape, row 0 zero (every other row is written before it is
+    read), or None for two fresh zeroed ones.
     """
     if n < 1 or num_chunks < 1:
         raise ValueError(f"need n >= 1 and num_chunks >= 1, got {n}, {num_chunks}")
-    wires = [torch.zeros(wire_shape, dtype=torch.int32, device=device)
-             for _ in range(2)]
+    wires = _wires(wire_shape, device, wires)
     ticks = num_ticks(num_chunks, n)
     for t in range(ticks):
         lo, count = active_nodes(t, n, num_chunks)
@@ -122,7 +133,7 @@ def active_nodes_many(t: int, n: int, num_chunks: int, num_objects: int,
 
 def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
                        slot_shape: tuple[int, ...], *, num_objects: int,
-                       stagger: int, device: torch.device) -> int:
+                       stagger: int, device: torch.device, wires=None) -> int:
     """Interleave ``num_objects`` chain pipelines over the node axis; returns
     the number of ticks, ``num_ticks_many(...)``, against
     ``num_objects * num_ticks(...)`` for a loop of single-object runs.
@@ -132,14 +143,14 @@ def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
     (node i, object b) reads its incoming wire from ``wire_in[i, b % W]``,
     writes its own results in place and forwards into ``wire_out[i + 1,
     b % W]``. The wires are (n, W) + ``slot_shape`` int32 with W =
-    ``window_size(...)``; row 0 stays zero for the whole run.
+    ``window_size(...)``; row 0 stays zero for the whole run. ``wires`` as
+    in ``software_pipeline``.
     """
     if n < 1 or num_chunks < 1 or num_objects < 1 or stagger < 1:
         raise ValueError(f"need n, num_chunks, num_objects and stagger >= 1, got "
                          f"{n}, {num_chunks}, {num_objects}, {stagger}")
     W = window_size(num_chunks, num_objects, stagger)
-    wires = [torch.zeros((n, W) + tuple(slot_shape), dtype=torch.int32, device=device)
-             for _ in range(2)]
+    wires = _wires((n, W) + tuple(slot_shape), device, wires)
     ticks = num_ticks_many(num_chunks, n, num_objects, stagger)
     for t in range(ticks):
         lo, count = active_nodes_many(t, n, num_chunks, num_objects, stagger)

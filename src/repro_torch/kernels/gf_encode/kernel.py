@@ -25,7 +25,8 @@ for the bit-lift), shape and contiguity of every tensor and raises on
 anything else, launches on PyTorch's current stream, allocates nothing, and
 raises if the launch reports an error. Each keeps a plain-integer
 ``launches`` counter that it bumps where it launches its kernel, and
-nowhere else. Outputs are written in place into the caller's buffers.
+nowhere else; a ``Graph`` of captured launches adds them again at each
+replay. Outputs are written in place into the caller's buffers.
 """
 from __future__ import annotations
 
@@ -810,3 +811,34 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+class Graph:
+    """Kernel launches captured once in a CUDA graph and replayed.
+
+    ``run()`` is captured on a side stream (``torch.cuda.graph``); its
+    kernels, buffers and table pointers are bound at capture, so the
+    caller keeps every tensor it touches alive and in place, and warms the
+    kernels (library load, first use of each instance) before. The
+    wrappers' counters count what ``run()`` would launch while it is
+    captured; those counts are taken back (capture launches nothing) and
+    added again at each ``replay()``, which launches them all on the
+    current stream. So ``launch_counts`` counts a replayed launch as any
+    other.
+    """
+
+    def __init__(self, run, device: torch.device):
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device):
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                run()
+        after = launch_counts()
+        self.launches = {name: after[name] - before[name] for name in after}
+        for fn in KERNELS:
+            fn.launches -= self.launches[fn.__name__]
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for fn in KERNELS:
+            fn.launches += self.launches[fn.__name__]

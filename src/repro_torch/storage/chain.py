@@ -15,11 +15,21 @@ Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks run the kernels' plain PyTorch versions. Asking for a CUDA
 device on a machine without one raises.
 
+Warm fast path: each entry point runs one cached program per (code,
+survivor set, stripe width, num_chunks, device) key
+(``repro_torch.core.jitcache``): the product tables cross to the device
+once, when the program is built, not on every call. ``superchunk_words``
+streams an object held on the host through the card in independent stripes
+of that width (``repro_torch.core.streaming``): every stripe replays one
+CUDA graph of the program's ticks, copies overlap the ticks on streams of
+their own, and ``sink(s, words)`` takes each stripe's result instead of a
+whole-object output. The single-stripe plan is the monolithic call, which
+reads its input in place with no graph.
+
 Not ported yet: the ``mesh=`` / ``order=`` placement of chain positions on
 devices (on one card a chain position is a row of a tensor, so the order
-has no effect on values), streaming in super-chunks (``superchunk_words=``
-/ ``sink=``) and the tuning behind ``num_chunks=None``, which here takes
-the hand-tuned ``DEFAULT_NUM_CHUNKS``.
+has no effect on values) and the tuning behind ``num_chunks=None``, which
+here takes the hand-tuned ``DEFAULT_NUM_CHUNKS``.
 """
 from __future__ import annotations
 
@@ -28,7 +38,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import gf, pipeline
+from repro_torch.core import gf, jitcache, pipeline, streaming
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
 
@@ -43,6 +53,8 @@ def _resolve_device(device=None) -> torch.device:
                            "to run the plain PyTorch path")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:   # the card a tensor .to(dev) lands on
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -114,14 +126,20 @@ def build_local_blocks(code: ErasureCode, data: np.ndarray) -> np.ndarray:
     return np.where(valid[:, :, None], data[idx], 0).astype(data.dtype)
 
 
+def _chunks(num_chunks: int | None, what: str) -> int:
+    """The chunk count, ``DEFAULT_NUM_CHUNKS`` for None, checked >= 1."""
+    if num_chunks is None:
+        return DEFAULT_NUM_CHUNKS
+    if num_chunks < 1:
+        raise ValueError(f"{what}: num_chunks must be >= 1, got {num_chunks}")
+    return num_chunks
+
+
 def _check_chunking(B: int, l: int, num_chunks: int | None, what: str) -> int:
     """The chunk count (``DEFAULT_NUM_CHUNKS`` for None), checked to cut a
     block of B words into chunks of whole uint32 lanes."""
-    if num_chunks is None:
-        num_chunks = DEFAULT_NUM_CHUNKS
+    num_chunks = _chunks(num_chunks, what)
     lanes = gf.LANES[l]
-    if num_chunks < 1:
-        raise ValueError(f"{what}: num_chunks must be >= 1, got {num_chunks}")
     if B % (lanes * num_chunks):
         if num_chunks == 1:
             raise ValueError(
@@ -133,12 +151,37 @@ def _check_chunking(B: int, l: int, num_chunks: int | None, what: str) -> int:
     return num_chunks
 
 
+def stream_plan(total_words: int, superchunk_words: int | None, l: int,
+                num_chunks: int | None, what: str) -> tuple[streaming.StreamPlan, int]:
+    """(the stripe plan, the chunk count) of a pipelined call, the stripe
+    width checked to cut into whole-lane chunks."""
+    num_chunks = _chunks(num_chunks, what)
+    plan = streaming.plan_stream(total_words, superchunk_words, l=l, num_chunks=num_chunks)
+    _check_chunking(plan.sc_words, l, num_chunks, what)
+    return plan, num_chunks
+
+
+def run_program(key, build, x: torch.Tensor, plan: streaming.StreamPlan, sink,
+                device: torch.device):
+    """The cached program of ``key`` (built by ``build`` on a miss) over
+    ``x``: in place on ``device`` for the single-stripe plan, else stripe
+    by stripe from the host (a CUDA ``x`` is brought to the host first, as
+    the JAX package's streaming takes host arrays)."""
+    program = jitcache.get(key, build)
+    if not plan.streaming:
+        x = x.to(device)
+    return streaming.run_words(program, x, plan, sink=sink)
+
+
 def device_tables(tables: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Cached uint32 product tables as the int32 tensor a tick takes."""
+    """Cached uint32 product tables as the int32 tensor a tick takes, copied
+    to ``device``: a program does it once, when it is built."""
     return torch.from_numpy(tables.view(np.int32).copy()).to(device)
 
 
-def _words(x, l: int, rows: int, what: str, device: torch.device) -> torch.Tensor:
+def _words(x, l: int, rows: int, what: str, device: torch.device | None = None) -> torch.Tensor:
+    """(rows, B) GF(2^l) words as a tensor on ``device`` (None: where it lies,
+    the host for a numpy array)."""
     x = torch.as_tensor(x, device=device)
     if x.dim() != 2 or x.shape[0] != rows:
         raise ValueError(f"{what}: words {tuple(x.shape)} must be ({rows}, B)")
@@ -159,37 +202,75 @@ def encode_operands(code: ErasureCode, data_packed: torch.Tensor):
             device_tables(product_tables(code), data_packed.device))
 
 
+def _build_encode(code: ErasureCode, sc_words: int, num_chunks: int,
+                  device: torch.device) -> streaming.Program:
+    """The encode program of one stripe geometry: (k, sc_words) words ->
+    (n, sc_words). The ticks read each node's replica blocks in place
+    through the slot table and write every active node's codeword chunk
+    straight into the (n, Bp) output; the wire has n rows (the last node's
+    forward is never read)."""
+    l, n = code.l, code.n
+    slots = placement_slots(code)
+    tables = device_tables(product_tables(code), device)
+    S = sc_words // gf.LANES[l] // num_chunks
+
+    def ticks(src, out, wires):
+        src, out = src[None], out[:, None]       # (1, k, Bp), (n, 1, Bp): views
+
+        def step(wire_in, wire_out, t, lo, count):
+            ops.chain_tick(wire_in, wire_out, src, slots, out, tables, l, t,
+                           num_chunks, lo, count)
+        pipeline.software_pipeline(step, n, num_chunks, (n, 1, S), device=device,
+                                   wires=wires)
+
+    return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(code.k,),
+                             out_lead=(n,), wire_shape=(n, 1, S), ticks=ticks)
+
+
 def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
-                     device=None) -> torch.Tensor:
+                     device=None, superchunk_words: int | None = None,
+                     sink=None) -> torch.Tensor | None:
     """Archive object ``data`` (k, B) words -> codeword blocks (n, B) words.
 
     ``data`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
     (GF(2^16)) words; the result is a tensor of words on ``device``.
-    The ticks read each node's replica blocks in place through the slot
-    table and write every active node's codeword chunk straight into the
-    (n, Bp) output; nodes without a chunk in a tick are not launched at
-    all. The wire has n rows: the last node's forward is never read.
-    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``.
+    Each tick is one ``chain_tick`` launch over the active nodes, reading
+    the replica blocks in place. ``num_chunks=None`` takes
+    ``DEFAULT_NUM_CHUNKS``.
+
+    ``superchunk_words`` streams a host-resident object through the card
+    as independent stripes of that many words a block, each one replay of
+    the same cached program; the result is then a CPU tensor, or, with
+    ``sink``, ``sink(s, coded_stripe)`` receives each trimmed (n, W) words
+    array and None is returned. Stripes encode bit-identically to the
+    monolithic call; the default single-stripe plan IS the monolithic call.
     """
     if not code.supports_chain_encode:
         raise ValueError(
             f"pipelined_encode: {code.family} has no chain schedule — "
             f"use code.encode_np")
     dev = _resolve_device(device)
-    l, n = code.l, code.n
-    data = _words(data, l, code.k, "pipelined_encode", dev)
-    num_chunks = _check_chunking(data.shape[1], l, num_chunks, "pipelined_encode")
-    src, slots, tables = encode_operands(code, gf.pack_u32(data, l))
-    Bp = src.shape[-1]
-    out = torch.empty((n, 1, Bp), dtype=torch.int32, device=dev)  # every chunk written once
+    data = _words(data, code.l, code.k, "pipelined_encode")
+    plan, num_chunks = stream_plan(data.shape[1], superchunk_words, code.l, num_chunks,
+                                   "pipelined_encode")
+    return run_program(("encode", code.cache_key, plan.sc_words, num_chunks, dev),
+                       lambda: _build_encode(code, plan.sc_words, num_chunks, dev),
+                       data, plan, sink, dev)
 
-    def step(wire_in, wire_out, t, lo, count):
-        ops.chain_tick(wire_in, wire_out, src, slots, out, tables, l, t,
-                       num_chunks, lo, count)
 
-    pipeline.software_pipeline(step, n, num_chunks, (n, 1, Bp // num_chunks),
-                               device=dev)
-    return gf.unpack_u32(out[:, 0], l)
+def encode_program(code: ErasureCode, sc_words: int, num_chunks: int = DEFAULT_NUM_CHUNKS,
+                   device=None) -> streaming.Program:
+    """The cached encode program of one stripe geometry, (k, sc_words) ->
+    (n, sc_words) words: what a store-driven stream
+    (``storage.archive.archive_step`` with ``superchunk_bytes``) hands to
+    ``streaming.execute`` itself. Same key as ``pipelined_encode``, so a
+    store-driven and an in-memory stream of one geometry share a program."""
+    if not code.supports_chain_encode:
+        raise ValueError(f"encode_program: {code.family} has no chain schedule")
+    dev = _resolve_device(device)
+    num_chunks = _check_chunking(sc_words, code.l, num_chunks, "encode_program")
+    return jitcache.get(("encode", code.cache_key, sc_words, num_chunks, dev),
+                        lambda: _build_encode(code, sc_words, num_chunks, dev))
 
 
 @functools.lru_cache(maxsize=256)
@@ -228,19 +309,45 @@ def decode_operands(code: ErasureCode, ids, device: torch.device) -> torch.Tenso
     return device_tables(decode_tables(code, tuple(int(i) for i in ids)), device)
 
 
+def _build_decode(code: ErasureCode, ids: tuple[int, ...], sc_words: int,
+                  num_chunks: int, device: torch.device) -> streaming.Program:
+    """The decode program of one survivor set and stripe geometry:
+    (len(ids), sc_words) shards -> (k, sc_words) words. Node i reads shard
+    i in place; only the last node's sums are kept, written straight into
+    the output; node 0 starts from zero sums and reads no wire."""
+    l, k, n_alive = code.l, code.k, len(ids)
+    tables = device_tables(decode_tables(code, ids), device)
+    rows = identity_rows(n_alive)
+    S = sc_words // gf.LANES[l] // num_chunks
+
+    def ticks(src, out, wires):
+        packed, out = src[:, None], out[None]    # (n_alive, 1, Bp), (1, k, Bp): views
+
+        def step(wire_in, wire_out, t, lo, count):
+            ops.repair_tick(wire_in, wire_out, packed, rows, out, tables, l, t,
+                            num_chunks, lo, count, head_zero=True)
+        pipeline.software_pipeline(step, n_alive, num_chunks, (n_alive, 1, k, S),
+                                   device=device, wires=wires)
+
+    return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(n_alive,),
+                             out_lead=(k,), wire_shape=(n_alive, 1, k, S), ticks=ticks)
+
+
 def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = None,
-                     device=None) -> torch.Tensor:
+                     device=None, superchunk_words: int | None = None,
+                     sink=None) -> torch.Tensor | None:
     """Pipelined RapidRAID decode (paper §III's pipelined decoding).
 
     The len(ids) shard-holding nodes form a chain; the wire carries the k
     running partial output blocks, and node i adds D[:, i] * c_i as the
     stream passes, one repair-tick launch per tick, reading its shard in
     place. Only the LAST node's (k, Bp) sums are kept: they are the decoded
-    object, written straight into the output (the JAX package materializes
-    every node's (k, Bp) and keeps the last). Node 0 starts from zero sums
-    and reads no wire. ``shards`` (len(ids), B) words as a numpy array or
-    tensor; returns the (k, B) object as a tensor of words on ``device``.
-    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``.
+    object (the JAX package materializes every node's (k, Bp) and keeps
+    the last). ``shards`` (len(ids), B) words as a numpy array or tensor;
+    returns the (k, B) object as a tensor of words on ``device``.
+    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``. ``superchunk_words``
+    / ``sink`` stream the decode as in ``pipelined_encode``: decode applies
+    D per word, so the stripes concatenate to the monolithic result.
     """
     if not code.positionwise:
         raise ValueError(
@@ -248,22 +355,12 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
             f"use code.decode_np")
     ids = tuple(int(i) for i in ids)
     dev = _resolve_device(device)
-    l, k, n_alive = code.l, code.k, len(ids)
-    shards = _words(shards, l, n_alive, "pipelined_decode", dev)
-    num_chunks = _check_chunking(shards.shape[1], l, num_chunks, "pipelined_decode")
-    tables = decode_operands(code, ids, dev)
-    packed = gf.pack_u32(shards, l)[:, None]         # (n_alive, 1, Bp), a view
-    rows = identity_rows(n_alive)                    # node i reads shard i
-    Bp = packed.shape[-1]
-    out = torch.empty((1, k, Bp), dtype=torch.int32, device=dev)  # every chunk written once
-
-    def step(wire_in, wire_out, t, lo, count):
-        ops.repair_tick(wire_in, wire_out, packed, rows, out, tables, l, t,
-                        num_chunks, lo, count, head_zero=True)
-
-    pipeline.software_pipeline(step, n_alive, num_chunks,
-                               (n_alive, 1, k, Bp // num_chunks), device=dev)
-    return gf.unpack_u32(out[0], l)
+    shards = _words(shards, code.l, len(ids), "pipelined_decode")
+    plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l, num_chunks,
+                                   "pipelined_decode")
+    return run_program(("decode", code.cache_key, ids, plan.sc_words, num_chunks, dev),
+                       lambda: _build_decode(code, ids, plan.sc_words, num_chunks, dev),
+                       shards, plan, sink, dev)
 
 
 def order_chain(node_speeds: np.ndarray, n: int, k: int) -> np.ndarray:

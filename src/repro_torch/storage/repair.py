@@ -26,19 +26,27 @@ On one card:
 
 The repair plan (helpers + R, a host Gaussian elimination), its tick
 operands (row table, product tables) and the decode matrix of a survivor
-set are cached, so warm calls do no host algebra and build no tables.
-Entry points run on the card unless the caller passes ``device="cpu"``,
-where the ticks and the encode run the kernels' plain PyTorch versions.
+set are cached, and each pipelined repair runs one cached program per
+(code, missing rows, survivors, batch, stripe width, num_chunks, stagger,
+device) key (``repro_torch.core.jitcache``), so warm calls do no host
+algebra, build no tables and copy none to the card. Entry points run on the
+card unless the caller passes ``device="cpu"``, where the ticks and the
+encode run the kernels' plain PyTorch versions.
 
 ``pipelined_repair_many`` repairs the same lost rows of B objects (every
 object archived on a failed node set) as staggered reverse chains over the
 same helpers, one ``repair_tick`` launch a tick over the object window
 (``repro_torch.storage.multi``), reading the helpers' shards in place from
-the (B_obj, len(ids), B) batch.
+the (B_obj, len(ids), B) batch. Both pipelined repairs take
+``superchunk_words`` / ``sink`` and stream a host-resident shard set stripe
+by stripe, as ``storage.chain`` does; a streamed repair copies in every
+survivor shard it is given, so a caller passes only the plan's helpers
+(``repair_plan``) to copy no more than the chain reads, as
+``storage.archive`` does.
 
-Not ported yet: streaming in super-chunks (``superchunk_words=`` /
-``sink=``), the tuning behind ``num_chunks=None`` and ``stagger=None`` (here
-the hand-tuned ``DEFAULT_NUM_CHUNKS`` and a stagger of 1) and ``mesh=``.
+Not ported yet: the tuning behind ``num_chunks=None`` and ``stagger=None``
+(here the hand-tuned ``DEFAULT_NUM_CHUNKS`` and a stagger of 1) and
+``mesh=``.
 """
 from __future__ import annotations
 
@@ -47,12 +55,13 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import fault_tolerance, gf, pipeline
+from repro_torch.core import fault_tolerance, gf, pipeline, streaming
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
 from repro_torch.storage import multi
 from repro_torch.storage.chain import (_check_chunking, _resolve_device, _words,
-                                       column_bitplanes, device_tables)
+                                       column_bitplanes, device_tables, run_program,
+                                       stream_plan)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,18 +133,58 @@ def repair_np(code: ErasureCode, missing, ids, shards) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _survivor_shards(code: ErasureCode, ids, shards, what: str, device,
-                     num_chunks: int | None) -> tuple[torch.Tensor, int]:
-    """(the survivors' shards as words on ``device``, the chunk count)."""
+def _survivor_shards(code: ErasureCode, ids, shards, what: str,
+                     device=None) -> torch.Tensor:
+    """The survivors' shards as words (on ``device``; None: where they lie)."""
     if not code.positionwise:
         raise ValueError(f"{what}: {code.family} shards are sub-packetized — "
                          f"use code.repair_np")
-    shards = _words(shards, code.l, len(ids), what, device)
-    return shards, _check_chunking(shards.shape[1], code.l, num_chunks, what)
+    return _words(shards, code.l, len(ids), what, device)
+
+
+def _build_repair(code: ErasureCode, missing: tuple[int, ...], ids: tuple[int, ...],
+                  B_obj: int | None, sc_words: int, num_chunks: int, stagger: int,
+                  device: torch.device) -> streaming.Program:
+    """The pipelined repair program of one plan and stripe geometry: the
+    survivors' shards, (len(ids), sc_words) or for B_obj objects (B_obj,
+    len(ids), sc_words), -> the lost rows, (|missing|, sc_words) or (B_obj,
+    |missing|, sc_words). The helpers form a reverse chain, each position
+    reading its helper's shard in place through the row table."""
+    l = code.l
+    rows_table, tables = repair_operands(code, missing, ids, device)
+    h, rows = len(rows_table), len(missing)
+    S = sc_words // gf.LANES[l] // num_chunks
+    if B_obj is None:
+        def ticks(src, out, wires):
+            packed, out = src[:, None], out[None]    # (len(ids), 1, Bp), (1, rows, Bp)
+
+            def step(wire_in, wire_out, t, lo, count):
+                ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
+                                num_chunks, lo, count, head_zero=True)
+            pipeline.software_pipeline(step, h, num_chunks, (h, 1, rows, S), device=device,
+                                       wires=wires)
+
+        return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(len(ids),),
+                                 out_lead=(rows,), wire_shape=(h, 1, rows, S), ticks=ticks)
+
+    def ticks_many(src, out, wires):
+        packed = src.transpose(0, 1)                 # (len(ids), B_obj, Bp), a view
+
+        def step(wire_in, wire_out, t, lo, count):
+            ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
+                            num_chunks, lo, count, head_zero=True, stagger=stagger)
+        pipeline.staggered_pipeline(step, h, num_chunks, (rows, S), num_objects=B_obj,
+                                    stagger=stagger, device=device, wires=wires)
+
+    W = pipeline.window_size(num_chunks, B_obj, stagger)
+    return streaming.Program(device=device, l=l, sc_words=sc_words,
+                             in_lead=(B_obj, len(ids)), out_lead=(B_obj, rows),
+                             wire_shape=(h, W, rows, S), ticks=ticks_many)
 
 
 def pipelined_repair(code: ErasureCode, ids, shards, missing,
-                     num_chunks: int | None = None, device=None) -> torch.Tensor:
+                     num_chunks: int | None = None, device=None,
+                     superchunk_words: int | None = None, sink=None) -> torch.Tensor | None:
     """Repair <= n-k lost shards by streaming k survivors through a chain.
 
     ids: surviving codeword rows; shards (len(ids), B) words (numpy or a
@@ -144,30 +193,28 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
     active helpers, which read their shards where they lie in ``shards``
     (no gather), and the replacement ends up with the repaired
     (|missing|, B) words, returned on ``device``. ``num_chunks=None`` takes
-    ``DEFAULT_NUM_CHUNKS``. Raises ValueError if the survivors are not
-    decodable.
+    ``DEFAULT_NUM_CHUNKS``. ``superchunk_words`` / ``sink`` stream the
+    repair stripe by stripe (``storage.chain.pipelined_encode``), so a lost
+    node on a many-stripe object heals without the card ever holding the
+    whole shards. Raises ValueError if the survivors are not decodable.
     """
+    what = "pipelined_repair"
+    ids = tuple(int(i) for i in ids)
+    missing = tuple(int(m) for m in missing)
     dev = _resolve_device(device)
-    l = code.l
-    shards, num_chunks = _survivor_shards(code, ids, shards, "pipelined_repair", dev,
-                                          num_chunks)
-    rows_table, tables = repair_operands(code, missing, ids, dev)
-    packed = gf.pack_u32(shards, l)[:, None]             # (len(ids), 1, Bp), a view
-    h, Bp, rows = len(rows_table), packed.shape[-1], len(missing)
-    out = torch.empty((1, rows, Bp), dtype=torch.int32, device=dev)  # every chunk written once
-
-    def step(wire_in, wire_out, t, lo, count):
-        ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
-                        num_chunks, lo, count, head_zero=True)
-
-    pipeline.software_pipeline(step, h, num_chunks, (h, 1, rows, Bp // num_chunks),
-                               device=dev)
-    return gf.unpack_u32(out[0], l)
+    shards = _survivor_shards(code, ids, shards, what)
+    plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l, num_chunks,
+                                   what)
+    return run_program(
+        ("repair", code.cache_key, missing, ids, plan.sc_words, num_chunks, dev),
+        lambda: _build_repair(code, missing, ids, None, plan.sc_words, num_chunks, 0, dev),
+        shards, plan, sink, dev)
 
 
 def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
                           num_chunks: int | None = None, stagger: int | None = None,
-                          device=None) -> torch.Tensor:
+                          device=None, superchunk_words: int | None = None,
+                          sink=None) -> torch.Tensor | None:
     """B_obj concurrent repairs as staggered reverse chains over one helper set.
 
     ids/missing are shared across objects (after a node failure every
@@ -177,37 +224,35 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     ``repair_tick`` launch over the object window; each chain position
     reads its helper's shard of object b in place from ``shards``.
     ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``, ``stagger=None``
-    takes 1. Raises ValueError if the survivors are not decodable.
+    takes 1. ``superchunk_words`` / ``sink`` stream the batch stripe by
+    stripe. Raises ValueError if the survivors are not decodable.
     """
-    dev = _resolve_device(device)
-    l = code.l
+    what = "pipelined_repair_many"
     if not code.positionwise:
-        raise ValueError(f"pipelined_repair_many: {code.family} shards are "
+        raise ValueError(f"{what}: {code.family} shards are "
                          f"sub-packetized — use code.repair_np")
-    shards = multi.batch_words(shards, l, len(ids), "pipelined_repair_many", "shards",
-                               "len(ids)", dev)
-    num_chunks = _check_chunking(shards.shape[2], l, num_chunks, "pipelined_repair_many")
-    stagger = multi.check_stagger(stagger, "pipelined_repair_many")
-    rows_table, tables = repair_operands(code, missing, ids, dev)
-    packed = gf.pack_u32(shards, l).transpose(0, 1)   # (len(ids), B_obj, Bp), a view
-    h, rows = len(rows_table), len(missing)
-    B_obj, Bp = shards.shape[0], packed.shape[-1]
-    out = torch.empty((B_obj, rows, Bp), dtype=torch.int32, device=dev)  # every chunk written once
-
-    def step(wire_in, wire_out, t, lo, count):
-        ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
-                        num_chunks, lo, count, head_zero=True, stagger=stagger)
-
-    pipeline.staggered_pipeline(step, h, num_chunks, (rows, Bp // num_chunks),
-                                num_objects=B_obj, stagger=stagger, device=dev)
-    return gf.unpack_u32(out, l)
+    ids = tuple(int(i) for i in ids)
+    missing = tuple(int(m) for m in missing)
+    dev = _resolve_device(device)
+    shards = multi.batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
+    B_obj = shards.shape[0]
+    plan, num_chunks = stream_plan(shards.shape[2], superchunk_words, code.l, num_chunks,
+                                   what)
+    stagger = multi.check_stagger(stagger, what)
+    return run_program(
+        ("repair_many", code.cache_key, missing, ids, B_obj, plan.sc_words, num_chunks,
+         stagger, dev),
+        lambda: _build_repair(code, missing, ids, B_obj, plan.sc_words, num_chunks, stagger,
+                              dev),
+        shards, plan, sink, dev)
 
 
 def star_repair(code: ErasureCode, ids, shards, missing, device=None) -> torch.Tensor:
     """Star repair: the replacement node gathers k whole helper shards and
     reconstructs locally, one ``gf_encode`` launch of R over them."""
     dev = _resolve_device(device)
-    shards, _ = _survivor_shards(code, ids, shards, "star_repair", dev, 1)
+    shards = _survivor_shards(code, ids, shards, "star_repair", dev)
+    _check_chunking(shards.shape[1], code.l, 1, "star_repair")
     ids = [int(i) for i in ids]
     helpers, R = _repair_plan_cached(code, tuple(int(m) for m in missing), tuple(ids))
     rows = [ids.index(h) for h in helpers]
