@@ -105,10 +105,41 @@ last line:
    at stagger 1 against one ``archive_step`` / ``repair`` each. Each wall is
    printed with the share the kernels take (CUDA events around each
    launch or graph replay). The store is removed at the end.
+13. Checkpointing a real train state: whisper-base's (``WHISPER_BASE_PARAMS``:
+   the JAX package's model and AdamW state at full depth, 83 leaves, a
+   1.227 GiB blob), made on the card from the seed, through a
+   ``CheckpointManager`` on 16-node (16,11) GF(2^16) stores in a temporary
+   directory: ``save_sharded`` (blocks against ``tree_to_bytes``, the
+   codeword against the plain matvec on the card, ``num_ticks`` chain_tick
+   launches), a second save of new values building no program, nodes
+   ``[5, 6, 7, 8, 14]`` lost and ``restore_sharded`` bit for bit (repair
+   ticks counted), the static route (``use_devices=False``: coded blobs
+   equal step 1's byte for byte, one ``gf_encode`` launch each way), the
+   host route (``save`` x 3 with ``hot_keep=1``, so ``_migrate_old``
+   archives two steps; ``restore`` after the losses, the archived step
+   through ``restore_sharded``, ``read_range`` across a leaf boundary), and
+   a save streamed at a 256 MiB ``footprint_bytes`` (its stripe record, its
+   digests equal the device-direct save's, a bit-exact restore through the
+   host decode). Each step's wall, kernels' share and peak device bytes
+   above what was resident are printed, and each store's bytes before it
+   is removed.
+14. The control plane: ``autotune.prewarm`` in search mode on the (16,11)
+   GF(2^16) code at 2^25 words a block and 4 objects, with a tuning cache
+   of the run's own; the calibration, both dispatch timings and the
+   winner, the tuned chunk counts and stagger are printed. Then a cached
+   process: the entry points at ``num_chunks=None`` / ``stagger=None``
+   make zero probes and equal the explicit calls; ``encode_auto`` on a
+   ``"vpu"`` and an ``"mxu"`` entry launches ``gf_encode`` /
+   ``gf_encode_mxu`` and equals the plain versions; a probe whose kernel
+   fails raises; ``archive_step`` with a topology whose nodes 3 and 9 are
+   slowed 4x records the scheduler's plan and restores bit for bit; and
+   ``python -m repro_torch.autotune`` on the warm cache exits 0 with zero
+   probes.
 
 Then one JSON line with every kernel's numbers over all of the run's
-launches (the staggered launches of phase 8 in rows of their own), and
-the device line.
+launches (the staggered launches of phase 8 in rows of their own;
+``slice_launches``: each kernel's launches over phases 13-14's counted
+runs, every one of which must be above 0), and the device line.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -134,8 +165,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import (classical, codes, fault_tolerance, gf, jitcache,  # noqa: E402
-                              pipeline, rapidraid, streaming)
+from repro_torch.checkpoint import devio, manager  # noqa: E402
+from repro_torch.core import (autotune, classical, codes, fault_tolerance, gf,  # noqa: E402
+                              jitcache,
+                              pipeline, rapidraid, scheduler, streaming, topology)
 from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
 from repro_torch.storage import archive, atomic, chain, multi, object_store, repair  # noqa: E402
 
@@ -171,6 +204,34 @@ ARCHIVE_STRIPE_BYTES = 4 << 20           # phase 12: 2^21 words, phase 11's stri
 ARCHIVE_OBJECTS = 8                      # phase 12: archive_many / repair_many batch
 ARCHIVE_BLOCK_BYTES = 6 << 20            # phase 12: each of the batch's 11 blocks
 READ_RANGE_BYTES = 1 << 20               # phase 12: read_range_ex across a block boundary
+# Phase 13: whisper-base's train state as the JAX package's
+# benchmarks/fig_checkpoint.py builds it (model.init and adamw.init_opt of
+# configs/whisper_base.py, at full depth): each parameter's path and shape,
+# all float32; the AdamW m and v mirror the parameters, beside an int32
+# count and an np.int64 step: 83 leaves, a 1,316,999,375-byte blob.
+WHISPER_BASE_PARAMS = (
+    ("dec_layers/attn/wk", (6, 512, 512)), ("dec_layers/attn/wo", (6, 512, 512)),
+    ("dec_layers/attn/wq", (6, 512, 512)), ("dec_layers/attn/wv", (6, 512, 512)),
+    ("dec_layers/mlp/wg", (6, 512, 2048)), ("dec_layers/mlp/wi", (6, 512, 2048)),
+    ("dec_layers/mlp/wo", (6, 2048, 512)), ("dec_layers/norm1/scale", (6, 512)),
+    ("dec_layers/norm2/scale", (6, 512)), ("dec_layers/norm_x/scale", (6, 512)),
+    ("dec_layers/xattn/wk", (6, 512, 512)), ("dec_layers/xattn/wo", (6, 512, 512)),
+    ("dec_layers/xattn/wq", (6, 512, 512)), ("dec_layers/xattn/wv", (6, 512, 512)),
+    ("embed", (51865, 512)),
+    ("enc_layers/attn/wk", (6, 512, 512)), ("enc_layers/attn/wo", (6, 512, 512)),
+    ("enc_layers/attn/wq", (6, 512, 512)), ("enc_layers/attn/wv", (6, 512, 512)),
+    ("enc_layers/mlp/wg", (6, 512, 2048)), ("enc_layers/mlp/wi", (6, 512, 2048)),
+    ("enc_layers/mlp/wo", (6, 2048, 512)), ("enc_layers/norm1/scale", (6, 512)),
+    ("enc_layers/norm2/scale", (6, 512)), ("enc_norm/scale", (512,)),
+    ("final_norm/scale", (512,)), ("lm_head", (512, 51865)),
+)
+WHISPER_BLOB_BYTES = 1316999375
+CKPT_LOST = [5, 6, 7, 8, 14]             # phase 13: the nodes lost before restore_sharded
+CKPT_STREAM_BUDGET = 256 << 20           # phase 13: footprint_bytes of the streamed save
+CKPT_RANGE_BYTES = 1 << 20               # phase 13: read_range across a leaf boundary
+TUNE_BLOCK_WORDS = 1 << 25               # phase 14: the paper's block, 2^25 words
+TUNE_OBJECTS = 4                         # phase 14: prewarm's b_obj
+SLOW_NODES = (3, 9)                      # phase 14: slowed 4x in the archive's topology
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -192,6 +253,26 @@ CSRC = "src/repro_torch/kernels/gf_encode/csrc/"
 SOURCE = {"chain_tick": CSRC + "gf_tick.cu", "repair_tick": CSRC + "gf_tick.cu",
           "gf_encode": CSRC + "gf_encode.cu", "gf_encode_mxu": CSRC + "gf_mxu.cu",
           "chain_tick[many]": CSRC + "gf_tick.cu", "repair_tick[many]": CSRC + "gf_tick.cu"}
+
+
+def whisper_state(fill, count: int = 1, step: int = 1) -> dict:
+    """Phase 13's train state: ``fill(shape)`` makes each float32 leaf of
+    the parameters and of AdamW's m and v (``WHISPER_BASE_PARAMS``), beside
+    an int32 ``count`` tensor and an ``np.int64`` step. ``fill`` on the
+    ``meta`` device gives the layout without data."""
+    def params() -> dict:
+        out: dict = {}
+        for path, shape in WHISPER_BASE_PARAMS:
+            *head, leaf = path.split("/")
+            node = out
+            for key in head:
+                node = node.setdefault(key, {})
+            node[leaf] = fill(shape)
+        return out
+    template = fill((1,))
+    return {"opt": {"count": torch.full((), count, dtype=torch.int32, device=template.device),
+                    "m": params(), "v": params()},
+            "params": params(), "step": np.int64(step)}
 
 
 def smi(query: str) -> str:
@@ -1123,7 +1204,9 @@ class KernelTimer:
     """Device time of what an entry point runs on the card while ``active``:
     CUDA events around each tick launch, ``encode_packed`` call and graph
     replay (each span also holds any wait of the card for the launch), and
-    the host seconds spent staging stripes into pinned memory. Nothing is
+    the host seconds spent staging stripes into pinned memory. (The
+    static kernels' spans are ``encode_packed`` and ``encode_mxu`` calls.)
+    Nothing is
     recorded while a graph is being captured."""
 
     def __init__(self):
@@ -1152,7 +1235,8 @@ class KernelTimer:
 
     @contextlib.contextmanager
     def active(self):
-        saved = {name: getattr(ops, name) for name in ("chain_tick", "repair_tick", "encode_packed")}
+        saved = {name: getattr(ops, name)
+                 for name in ("chain_tick", "repair_tick", "encode_packed", "encode_mxu")}
         replay, stage = kernel.Graph.replay, streaming._Stripes._stage
         try:
             for name, fn in saved.items():
@@ -1345,6 +1429,34 @@ def phase_streaming(code, lost, ids, data_np, cw704_digests, dev, seed: int, poo
               f"phase 3's monolithic codeword")
 
 
+def timed_call(what: str, fn, want: dict | None = None, tally: dict | None = None):
+    """Run ``fn`` once with the counters at 0 just before and read just after;
+    print its wall, the kernels' time and share of it (``KernelTimer``), the
+    launches and the peak device bytes above what was allocated before it.
+    ``want``: the launches it must make; ``tally`` adds them up."""
+    timer = KernelTimer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel.reset_launch_counts()
+    with timer.active():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    k_ms, counts = timer.ms(), kernel.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if want:
+        check(counts == only(**want), f"{what} launches {counts}, want {want}")
+    if tally is not None:
+        for name, c in counts.items():
+            tally[name] += c
+    print(f"{what}: {wall:.1f} ms wall, kernels {k_ms:.3f} ms ({100 * k_ms / wall:.3f}% of "
+          f"the wall), launches {({n: c for n, c in counts.items() if c})}, peak "
+          f"{peak / 2**30:.3f} GiB above what was allocated before")
+    return out
+
+
 def phase_archive(code, data_np, lost, cw704_digests, dev, seed: int) -> None:
     """Phase 12: the store's lifecycle on phase 3's object, then a batch of
     8 objects; each step timed with the kernels' share of its wall."""
@@ -1358,20 +1470,7 @@ def phase_archive(code, data_np, lost, cw704_digests, dev, seed: int) -> None:
           f"({smi('name,power.limit')})")
 
     def timed(what: str, fn, **want_launches):
-        timer = KernelTimer()
-        torch.cuda.synchronize()
-        kernel.reset_launch_counts()
-        with timer.active():
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        k_ms, counts = timer.ms(), kernel.launch_counts()
-        if want_launches:
-            check(counts == only(**want_launches), f"{what} launches {counts}, want {want_launches}")
-        print(f"{what}: {wall:.1f} ms wall, kernels {k_ms:.3f} ms ({100 * k_ms / wall:.3f}% of "
-              f"the wall), launches {({n: c for n, c in counts.items() if c})}")
-        return out
+        return timed_call(what, fn, want_launches)
 
     def same_blobs(a, b, ma, mb, steps_):
         for step in steps_:
@@ -1468,6 +1567,348 @@ def phase_archive(code, data_np, lost, cw704_digests, dev, seed: int) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def leaves_equal(got, want) -> bool:
+    """Bit-for-bit equality of two states: the same tree, each tensor leaf of
+    the same dtype and shape with the same bytes (compared on the want
+    leaf's device), each numpy leaf equal with the same dtype."""
+    g, gdef = object_store.tree_flatten(got)
+    w, wdef = object_store.tree_flatten(want)
+    if str(gdef) != str(wdef):
+        return False
+    for a, b in zip(g, w):
+        if isinstance(b, torch.Tensor):
+            if not (isinstance(a, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.to(b.device).reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8))):
+                return False
+        elif not (np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(a, b)):
+            return False
+    return True
+
+
+def tree_bytes(root: str) -> int:
+    """Bytes of every file under ``root``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def phase_checkpoint(code, dev, seed: int, pool) -> dict:
+    """Phase 13: whisper-base's train state through the checkpoint manager on
+    a 16-node store: device-direct saves and restores after 5 node losses,
+    the static route, the host route with its migrations, a streamed save.
+    Returns the kernels' launches over the phase's counted runs."""
+    tally = dict.fromkeys(kernel.launch_counts(), 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    like = whisper_state(lambda shape: torch.empty(shape, device="meta"))
+    layout = devio.state_layout(like)
+    check(len(layout.metas) == 83 and layout.blob_len == WHISPER_BLOB_BYTES,
+          f"whisper-base state: {len(layout.metas)} leaves, {layout.blob_len} bytes")
+    state1 = whisper_state(randn, count=1, step=1)
+    state2 = whisper_state(randn, count=2, step=2)
+    B = object_store.block_bytes_for(layout.blob_len, K, lane_bytes=devio.LANE_BYTES)
+    nc = devio._chunk_count(B // 2, L, NUM_CHUNKS)
+    enc_ticks, dec_ticks = pipeline.num_ticks(nc, N), pipeline.num_ticks(nc, K)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt-")
+    print(f"checkpoint: whisper-base train state, {len(layout.metas)} leaves, blob "
+          f"{layout.blob_len} bytes ({layout.blob_len / 2**30:.3f} GiB), {K} blocks of {B} "
+          f"bytes, {nc} chunks; ({N},{K}) GF(2^{L}) seed={seed}, 16-node stores under a "
+          f"temporary directory, lost nodes {CKPT_LOST} ({smi('name,power.limit')})")
+
+    def timed(what, fn, **want):
+        return timed_call(what, fn, want, tally)
+
+    def manager_at(name: str) -> manager.CheckpointManager:
+        return manager.CheckpointManager(manager.CheckpointConfig(
+            root=os.path.join(root, name), n=N, k=K, l=L, seed=seed, hot_keep=1))
+
+    def remove(mgr) -> None:
+        written = tree_bytes(mgr.ccfg.root)
+        shutil.rmtree(mgr.ccfg.root)
+        print(f"store {os.path.basename(mgr.ccfg.root)}: {written} bytes on disk, removed")
+
+    try:
+        # 1-2: device-direct saves, the codeword against the plain matvec
+        mgr = manager_at("device")
+        m1 = timed("save_sharded step 1 (first: builds the program)",
+                   lambda: mgr.save_sharded(1, state1), chain_tick=enc_ticks)
+        blob = object_store.tree_to_bytes(state1)
+        check(len(blob) == layout.blob_len and blob[:len(layout.prefix)] == layout.prefix,
+              "host blob of the state == the layout")
+        blocks = object_store.split_blocks(blob, K, lane_bytes=devio.LANE_BYTES)
+        del blob
+        check(m1["orig_digests"] == [d[:16] for d in host_digests(pool, blocks)],
+              "save_sharded blocks == tree_to_bytes of the state, split")
+        blocks_p = torch.from_numpy(blocks.view(np.int32)).to(dev)
+        del blocks
+        want_cw = gf.gf_matvec_packed(code.G, blocks_p, L)
+        del blocks_p
+        check(m1["coded_digests"] == [d[:16] for d in card_digests(pool,
+                                                                  gf.unpack_u32(want_cw, L))],
+              "save_sharded codeword == the plain packed matvec on the card")
+        del want_cw
+        torch.cuda.empty_cache()
+        before = jitcache.compile_counts()
+        timed("save_sharded step 2 (warm: new values)", lambda: mgr.save_sharded(2, state2),
+              chain_tick=enc_ticks)
+        check(jitcache.compile_counts() == before, "a repeated save builds no new program")
+
+        # 3: five nodes lost, device-direct restore
+        for i in CKPT_LOST:
+            mgr.store.fail_node(i)
+        got = timed("restore_sharded step 2 after 5 losses (first)",
+                    lambda: mgr.restore_sharded(2, like), repair_tick=dec_ticks)
+        check(leaves_equal(got, state2), "restore_sharded == the state, bit for bit")
+        del got
+        before = jitcache.compile_counts()
+        got = timed("restore_sharded step 2 (warm)", lambda: mgr.restore_sharded(2, like),
+                    repair_tick=dec_ticks)
+        check(leaves_equal(got, state2) and jitcache.compile_counts() == before,
+              "warm restore == the state, no new program")
+        del got
+
+        # 4: the static route: the same blobs as step 1's, one gf_encode launch
+        m3 = timed("save_sharded step 3, use_devices=False (gf_encode)",
+                   lambda: mgr.save_sharded(3, state1, use_devices=False), gf_encode=1)
+        check(m3["coded_digests"] == m1["coded_digests"],
+              "static route's coded digests == step 1's")
+        for pos in range(N):
+            if pos not in CKPT_LOST:
+                check(mgr.store.get(pos, archive.ARC.format(step=1, i=pos)) ==
+                      mgr.store.get(pos, archive.ARC.format(step=3, i=pos)),
+                      f"static route's blob {pos} == step 1's, byte for byte")
+        for i in CKPT_LOST:
+            mgr.store.fail_node(i)
+        got = timed("restore_sharded step 3 after 5 losses, use_devices=False",
+                    lambda: mgr.restore_sharded(3, like, use_devices=False), gf_encode=1)
+        check(leaves_equal(got, state1), "static restore == the state, bit for bit")
+        del got
+        remove(mgr)
+
+        # 5: the host route: hot saves, migrations, restore and a range read
+        mgr = manager_at("host")
+        timed("save step 10 (host: hot replicas)", lambda: mgr.save(10, state1))
+        timed("save step 11, archiving step 10", lambda: mgr.save(11, state2),
+              chain_tick=enc_ticks)
+        timed("save step 12, archiving step 11", lambda: mgr.save(12, state1),
+              chain_tick=enc_ticks)
+        check([mgr.tier(s) for s in mgr.steps()] == ["archive", "archive", "hot"],
+              f"tiers {[mgr.tier(s) for s in mgr.steps()]}")
+        for i in CKPT_LOST:
+            mgr.store.fail_node(i)
+        got = timed("restore step 12 after 5 losses (host route: hot replicas)",
+                    lambda: mgr.restore(12, like))
+        check(leaves_equal(got, state1), "host restore == the state, bit for bit")
+        del got
+        # the archived host-route step decodes on the card (the streamed
+        # restore below takes the host decode)
+        got = timed("restore_sharded step 10 after 5 losses (host-archived)",
+                    lambda: mgr.restore_sharded(10, like), repair_tick=dec_ticks)
+        check(leaves_equal(got, state1), "device restore of a host-archived step == the state")
+        del got
+        j = len(layout.metas) // 2
+        off = len(layout.prefix) + layout.metas[j]["offset"] - CKPT_RANGE_BYTES // 2
+        rr = timed(f"read_range step 11, {CKPT_RANGE_BYTES >> 20} MiB across leaves "
+                   f"{j - 1}|{j} (degraded)", lambda: mgr.read_range(11, off, CKPT_RANGE_BYTES))
+        check(rr == object_store.tree_to_bytes(state2)[off:off + CKPT_RANGE_BYTES],
+              "read_range == the state's blob")
+        remove(mgr)
+
+        # 6: a streamed save under a 256 MiB footprint
+        mgr = manager_at("stream")
+        sc = streaming.superchunk_words_for(CKPT_STREAM_BUDGET, code, NUM_CHUNKS)
+        plan = streaming.plan_stream(B // 2, sc, l=L, num_chunks=NUM_CHUNKS)
+        misses = jitcache.stats()["misses"]
+        m = timed(f"save_sharded step 20 streamed at a {CKPT_STREAM_BUDGET >> 20} MiB footprint",
+                  lambda: mgr.save_sharded(20, state1, footprint_bytes=CKPT_STREAM_BUDGET))
+        # a program built here runs its ticks once eagerly before it captures
+        # the stripes' graphs (on the card)
+        built = (jitcache.stats()["misses"] - misses) if dev.type == "cuda" else 0
+        stripes_ = m["streaming"]["stripes"]
+        check(kernel.launch_counts() == only(chain_tick=(plan.num_superchunks + built)
+                                             * pipeline.num_ticks(NUM_CHUNKS, N)),
+              f"streamed save launches {kernel.launch_counts()}")
+        check(m["streaming"]["num_superchunks"] == plan.num_superchunks
+              and m["streaming"]["superchunk_bytes"] == plan.sc_words * 2
+              and m["streaming"]["num_chunks"] == NUM_CHUNKS
+              and len(stripes_) == plan.num_superchunks
+              and sum(s_["words"] for s_ in stripes_) == B // 2
+              and all(len(s_["coded_digests"]) == N for s_ in stripes_),
+              "the manifest's stripe record")
+        check(m["coded_digests"] == m1["coded_digests"],
+              "streamed save's coded digests == the device-direct save's")
+        print(f"streamed save: {plan.num_superchunks} stripes of {plan.sc_words} words "
+              f"(modeled {streaming.estimate_stripe_bytes(code, plan.sc_words) / 2**20:.1f} "
+              f"MiB a stripe)")
+        for i in CKPT_LOST:
+            mgr.store.fail_node(i)
+        got = timed("restore_sharded step 20 after 5 losses (streamed: host decode)",
+                    lambda: mgr.restore_sharded(20, like))
+        check(leaves_equal(got, state1), "streamed restore == the state, bit for bit")
+        del got
+        remove(mgr)
+        print("checks: the codeword against the plain matvec, a warm save building nothing, "
+              "restores bit for bit after 5 losses on the device-direct, static, host and "
+              "streamed routes, the static and streamed blobs == the device-direct ones")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return tally
+
+
+def phase_control_plane(code, dev, seed: int) -> dict:
+    """Phase 14: the tuner in search mode on the paper's geometry, then a
+    cached process; encode_auto on both dispatches; archive_step planned on a
+    slowed topology; the CLI on the warm cache. Returns the kernels'
+    launches over the phase's counted runs."""
+    tally = dict.fromkeys(kernel.launch_counts(), 0)
+    nw, b_obj = TUNE_BLOCK_WORDS, TUNE_OBJECTS
+    print(f"control plane: ({N},{K}) GF(2^{L}) seed={seed}, {nw} words a block, b_obj={b_obj}, "
+          f"tuning cache {autotune.cache_path()} ({smi('name,power.limit')})")
+
+    def timed(what, fn, **want):
+        return timed_call(what, fn, want, tally)
+
+    os.environ[autotune.TUNE_ENV] = "search"
+    autotune.reset()
+    rep = timed("prewarm (search)", lambda: autotune.prewarm(code, nwords=nw, b_obj=b_obj))
+    check(rep["backend"] == autotune.backend(dev) and rep["stats"]["probes"] >= 6,
+          f"prewarm: backend {rep['backend']}, stats {rep['stats']}")
+    cal = rep["calibration"]
+    samples = [(x["num_chunks"], x["measured_s"], x["model_s"], x["hlo_pred_s"])
+               for x in cal["samples"]]
+    print(f"calibration: compute_rate {cal['compute_rate']:.6g} B/s, tick_overhead "
+          f"{cal['tick_overhead']:.6g} s, tick_quad {cal['tick_quad']:.6g}, max_rel_err "
+          f"{cal['max_rel_err']}; samples (num_chunks, measured s, model s, bytes-model s): "
+          f"{samples}")
+    dispatch = autotune.cache().get(autotune._key("dispatch", f"l={L}", f"rows={N}",
+                                                  f"k={K}", f"B={nw}", device=dev))
+    threads = autotune.cache().get(autotune._key("encode_packed", f"l={L}", f"Bp={nw // 2}",
+                                                 device=dev))
+    print(f"dispatch: timings {dispatch['timings_s']} s, winner {dispatch['value']}; "
+          f"gf_encode threads a block: timings {threads['timings_s']} s, winner "
+          f"{threads['value']}")
+    print(f"tuned: num_chunks encode {rep['num_chunks_encode']}, encode_many "
+          f"{rep['num_chunks_encode_many']} (b_obj {b_obj}), stagger {rep['stagger']}; "
+          f"probes {rep['stats']['probes']}")
+
+    # a cached process: the entry points resolve without a probe
+    os.environ[autotune.TUNE_ENV] = "cached"
+    autotune.reset()
+    data = autotune.random_words((K, nw), L, dev)
+    nc, nc_many, stg = rep["num_chunks_encode"], rep["num_chunks_encode_many"], rep["stagger"]
+    cw = timed("pipelined_encode, num_chunks=None (tuned)",
+               lambda: chain.pipelined_encode(code, data), chain_tick=pipeline.num_ticks(nc, N))
+    check(words_equal(cw, chain.pipelined_encode(code, data, num_chunks=nc))
+          and words_equal(cw, chain.pipelined_encode(code, data, num_chunks=NUM_CHUNKS)),
+          "the tuned encode == the explicit calls")
+    del cw
+    objs = autotune.random_words((b_obj, K, nw), L, dev)
+    many = timed("pipelined_encode_many, num_chunks=None, stagger=None (tuned)",
+                 lambda: multi.pipelined_encode_many(code, objs),
+                 chain_tick=pipeline.num_ticks_many(nc_many, N, b_obj, stg))
+    check(words_equal(many, multi.pipelined_encode_many(code, objs, num_chunks=nc_many,
+                                                        stagger=stg))
+          and words_equal(many, multi.pipelined_encode_many(code, objs, num_chunks=NUM_CHUNKS,
+                                                            stagger=1)),
+          "the tuned encode_many == the explicit calls")
+    del many, objs
+    torch.cuda.empty_cache()
+    check(autotune.stats()["probes"] == 0, f"a cached process probes: {autotune.stats()}")
+
+    # encode_auto on each dispatch, against the plain versions
+    key = autotune._key("dispatch", f"l={L}", f"rows={N}", f"k={K}", f"B={nw}", device=dev)
+    def plain_packed(M, words, l):
+        return gf.unpack_u32(ref.encode_packed_ref(M, gf.pack_u32(words, l), l), l)
+    for choice, name, plain in (("vpu", "gf_encode", plain_packed),
+                                ("mxu", "gf_encode_mxu", ref.bitlift_encode_ref)):
+        autotune.cache().put(key, {"value": choice})      # in memory only
+        out = timed(f"encode_auto with dispatch {choice!r}",
+                    lambda: ops.encode_auto(code.G, data, L), **{name: 1})
+        check(words_equal(out, plain(code.G, data, L)), f"encode_auto ({choice}) == plain")
+        del out
+    autotune.reset()                                      # back to the file's entries
+
+    # a kernel failure in a probe is raised, not skipped
+    os.environ[autotune.TUNE_ENV] = "search"
+    autotune.reset()
+    real = kernel.gf_encode_mxu
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("gf_encode_mxu: launch failed (injected by chip_smoke)")
+    half = gf.unpack_u32(gf.pack_u32(data, L)[:, :nw // 4].contiguous(), L)   # a new geometry
+    kernel.gf_encode_mxu = broken
+    try:
+        ops.dispatch_for_data(code.G, half, L)
+        raised = False
+    except RuntimeError:
+        raised = True
+    finally:
+        kernel.gf_encode_mxu = real
+    check(raised and autotune.cache().get(autotune._key(
+        "dispatch", f"l={L}", f"rows={N}", f"k={K}", f"B={nw // 2}", device=dev)) is None,
+        "a failing kernel in a dispatch probe raises and persists nothing")
+    del half
+    os.environ[autotune.TUNE_ENV] = "cached"
+    autotune.reset()
+    del data
+    torch.cuda.empty_cache()
+
+    # archive_step planned by the scheduler on a topology with two slow nodes
+    topo = topology.Topology.uniform(N)
+    for i in SLOW_NODES:
+        topo = topo.with_slow(i, 4.0)
+    plan = scheduler.plan_chain(topo, K, float(ARCHIVE_BLOCK_BYTES))
+    plan_nc = plan.num_chunks
+    while plan_nc > 1 and (ARCHIVE_BLOCK_BYTES // 2) % (gf.LANES[L] * plan_nc):
+        plan_nc //= 2
+    acfg = archive.ArchiveConfig(n=N, k=K, l=L, seed=seed, num_chunks=NUM_CHUNKS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    blocks = rand_i32(gen, (K, ARCHIVE_BLOCK_BYTES // 4), dev).cpu().numpy().view(np.uint8)
+    root = tempfile.mkdtemp(prefix="chip_smoke_topo-")
+    try:
+        store = object_store.NodeStore(root, N)
+        archive.hot_save(store, 1, blocks, acfg)
+        m = timed(f"archive_step with topology (nodes {list(SLOW_NODES)} slowed 4x), "
+                  f"{K} x {ARCHIVE_BLOCK_BYTES >> 20} MiB",
+                  lambda: archive.archive_step(store, 1, acfg, topology=topo),
+                  chain_tick=pipeline.num_ticks(plan_nc, N))
+        check(m["sched"] == {**plan.to_manifest(), "topology": topo.to_dict(),
+                             "num_chunks": plan_nc} and m["perm"] == list(plan.order),
+              "the manifest records the scheduler's plan")
+        print(f"sched: order {m['sched']['order']}, num_chunks {m['sched']['num_chunks']} "
+              f"(planned {plan.num_chunks}), makespan_s {m['sched']['makespan_s']}")
+        for i in CKPT_LOST:
+            store.fail_node(i)
+        res = timed("restore_blocks_ex after 5 losses (host decode)",
+                    lambda: archive.restore_blocks_ex(store, 1, acfg))
+        check(np.array_equal(res.data, blocks), "the scheduled archive restores bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the CLI on the warm cache: zero probes
+    src = str(Path(__file__).resolve().parent / "src")
+    env = {**os.environ, autotune.TUNE_ENV: "search",
+           "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.autotune", "--n", str(N),
+                           "--k", str(K), "--l", str(L), "--seed", str(seed), "--nwords",
+                           str(nw), "--b-obj", str(b_obj), "--device", str(dev), "--json"],
+                          env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"autotune CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout)
+    check(cli["stats"]["probes"] == 0 and all(cli[k_] == rep[k_] for k_ in (
+        "num_chunks_encode", "num_chunks_encode_many", "stagger", "dispatch")),
+        f"CLI on the warm cache: {cli['stats']}")
+    print(f"python -m repro_torch.autotune --n {N} --k {K} --nwords {nw} --json: exit 0 in "
+          f"{cli_s:.1f} s, probes {cli['stats']['probes']}, hits {cli['stats']['hits']}")
+    print("checks: prewarm on the card, zero probes in a cached process and in the CLI, tuned "
+          "codewords == explicit calls, encode_auto == plain on both dispatches, a failing "
+          "probe raises, the scheduled archive restores")
+    return tally
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1478,12 +1919,20 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     seed = args.seed
-    with concurrent.futures.ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
-        return run_phases(dev, seed, pool)
+    # a tuning cache of the run's own: a user's cache must not change a result
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune-")
+    os.environ[autotune.CACHE_ENV] = os.path.join(tune_dir, "autotune.json")
+    os.environ[autotune.TUNE_ENV] = "cached"
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=os.cpu_count() or 8) as pool:
+            return run_phases(dev, seed, pool)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
 
 
 def run_phases(dev, seed: int, pool) -> int:
-    """Phases 1-12, then the kernels line and the device line."""
+    """Phases 1-14, then the kernels line and the device line."""
+    t_start = time.perf_counter()
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1670,6 +2119,18 @@ def run_phases(dev, seed: int, pool) -> int:
 
     # -- phase 12: the archive lifecycle at the paper's size ------------------
     phase_archive(code, data_np, lost, cw704_digests, dev, seed)
+    del data_np
+
+    # -- phase 13: checkpointing whisper-base's train state --------------------
+    slice_launches = phase_checkpoint(code, dev, seed, pool)
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the control plane -------------------------------------------
+    for name, c in phase_control_plane(code, dev, seed).items():
+        slice_launches[name] += c
+    check(all(c > 0 for c in slice_launches.values()),
+          f"every kernel launched on phases 13-14's paths: {slice_launches}")
+    print(f"launches on phases 13-14's paths: {slice_launches}")
 
     rows = []
     for name, w in work.items():
@@ -1683,9 +2144,12 @@ def run_phases(dev, seed: int, pool) -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
             "library_why": LIBRARY_WHY[name],
+            "slice_launches": slice_launches.get(name),
             "bytes": w["bytes"], "ops": w["ops"], "int8_ops": w["int8_ops"],
         })
         report_work(name, w, "all paths")
+    print(f"script wall: {time.perf_counter() - t_start:.1f} s after the imports "
+          f"({smi('name,power.limit')})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

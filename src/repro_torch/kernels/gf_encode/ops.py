@@ -9,7 +9,11 @@ run as a one-node, one-chunk tick.
 
 ``encode_packed`` / ``encode_words`` apply a static (rows, k) GF matrix to
 packed lanes or words through the bit-plane kernel; ``encode_mxu`` applies
-it through the bit-lift kernel on the int8 tensor cores.
+it through the bit-lift kernel on the int8 tensor cores; ``encode_auto``
+takes whichever of the two the tuner measured faster for the geometry
+(``repro_torch.core.autotune``; the bit-plane kernel until a cache says
+otherwise). ``encode_packed``'s threads a block come from the tuning cache
+when the caller names none.
 
 A tensor on the CPU takes the plain version in ``ref``; a tensor on a CUDA
 device launches the kernel, and a failed build or launch raises. Nothing
@@ -22,10 +26,18 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import gf
+from repro_torch.core import autotune, gf
 from repro_torch.kernels.gf_encode import kernel, ref
 
 DEFAULT_BLOCK = 512   # lanes per block of the bit-plane encode, as in the JAX package
+TICK_THREADS = 256    # threads a block of the tick kernels (gf_tick.cu's kThreads)
+MXU_TILE_WORDS = 64   # words a tile of the bit-lift kernel (gf_mxu.cu's kTileWords, wgmma's M)
+ENCODE_THREAD_CANDIDATES = (32, 64, 128, 256)   # gf_encode's legal threads a block
+
+
+# the words' signed views of the same size: torch on CUDA copies and
+# transposes them where it has no kernels for uint16
+_SIGNED_WORD = {8: torch.int8, 16: torch.int16}
 
 
 def _route(x: torch.Tensor, cuda_fn, cpu_fn):
@@ -136,6 +148,15 @@ def pick_block(Bp: int, preferred: int = DEFAULT_BLOCK) -> int:
     return b
 
 
+def pick_tick_block(S: int) -> int:
+    """Lanes one block of a tick kernel covers a grid step, for chunks of
+    ``S`` lanes: ``TICK_THREADS`` threads of 4 lanes (16-byte loads) where
+    ``S`` is a multiple of 4, else of 1 lane. The kernels choose this
+    themselves from the shapes and strides they are given; no caller sets
+    it, and the tuner only records it (``autotune.tick_block``)."""
+    return TICK_THREADS * (4 if S % 4 == 0 else 1)
+
+
 def _matrix_key(M) -> tuple[tuple[int, ...], ...]:
     return tuple(tuple(int(v) for v in row) for row in np.asarray(M))
 
@@ -147,29 +168,45 @@ def _operand(M_key, l: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(kernel.mxu_operand(np.asarray(M_key), l)).to(device)
 
 
-def _encode_threads(Bp: int, block: int | None) -> int:
+def _encode_threads(Bp: int, block: int) -> int:
     """Threads per block of the specialised kernel (one lane a thread) for
-    ``block`` lanes per block, rounded to whole warps within its [32, 256];
-    ``None``: the kernel's own choice."""
-    if block is None:
-        return kernel.ENCODE_THREADS
+    ``block`` lanes per block, rounded to whole warps within its [32, 256]."""
     lanes = pick_block(Bp, block)
     return min(kernel.ENCODE_MAX_THREADS, max(32, -(-lanes // 32) * 32))
 
 
+def _launch_encode(M: np.ndarray, x: torch.Tensor, l: int, threads: int) -> torch.Tensor:
+    out = torch.empty((x.shape[0], M.shape[0], x.shape[-1]), dtype=torch.int32,
+                      device=x.device)
+    kernel.gf_encode(x.contiguous(), M, out, l, threads)
+    return out
+
+
+def _tuned_encode_block(M: np.ndarray, x: torch.Tensor, l: int) -> int:
+    """Threads a ``gf_encode`` block for (O, k, Bp) lanes ``x`` when the
+    caller names no block: the tuning cache (a search-mode miss sweeps the
+    real kernel over ``ENCODE_THREAD_CANDIDATES`` and persists the
+    fastest), else the kernel's own ``ENCODE_THREADS``. The cache keeps the
+    reference's ``encode_packed`` key; its value is the threads."""
+    return autotune.kernel_block(
+        "encode_packed", l, x.shape[-1], heuristic=kernel.ENCODE_THREADS,
+        candidates=ENCODE_THREAD_CANDIDATES,
+        probe=lambda threads: _launch_encode(M, x, l, threads), device=x.device)
+
+
 def _encode_packed_cuda(M: np.ndarray, x: torch.Tensor, l: int,
                         block: int | None) -> torch.Tensor:
-    Bp = x.shape[-1]
-    out = torch.empty((x.shape[0], M.shape[0], Bp), dtype=torch.int32, device=x.device)
-    kernel.gf_encode(x.contiguous(), M, out, l, _encode_threads(Bp, block))
-    return out
+    threads = (_tuned_encode_block(M, x, l) if block is None
+               else _encode_threads(x.shape[-1], block))
+    return _launch_encode(M, x, l, threads)
 
 
 def encode_packed(M: np.ndarray, data_packed: torch.Tensor, l: int,
                   block: int | None = None) -> torch.Tensor:
     """Packed bit-plane encode: (k, Bp) int32 lanes -> (rows, Bp), or a
     batch (O, k, Bp) -> (O, rows, Bp) in one launch. ``block`` is the
-    number of lanes per CUDA block, ``None`` for ``pick_block``'s choice."""
+    number of lanes per CUDA block; ``None`` resolves the threads through
+    the tuning cache (``_tuned_encode_block``)."""
     M = np.asarray(M)
     if M.ndim != 2:
         raise ValueError(f"encode_packed: coefficients {M.shape} must be (rows, k)")
@@ -221,6 +258,53 @@ def _encode_mxu_any(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
     if data.dim() == 2:
         return encode_mxu(M, data, l)
     O, k, B = data.shape
-    flat = data.transpose(0, 1).reshape(k, O * B)
-    out = encode_mxu(M, flat, l)
-    return out.reshape(-1, O, B).transpose(0, 1)
+    word, signed = data.dtype, _SIGNED_WORD[l]   # moved through signed views (see above)
+    flat = data.view(signed).transpose(0, 1).reshape(k, O * B).view(word)
+    out = encode_mxu(M, flat, l).view(signed)
+    return out.reshape(-1, O, B).transpose(0, 1).contiguous().view(word)
+
+
+def dispatch_for_data(M: np.ndarray, data: torch.Tensor, l: int) -> str:
+    """Tuned bit-plane vs bit-lift dispatch (``"vpu"`` / ``"mxu"``) for this
+    encode of (k, B) or (O, k, B) words.
+
+    On a search-mode cache miss, times BOTH real kernels on the actual
+    input and persists the winner per (backend, l, rows, k, B); otherwise
+    the cached value or the hand-tuned ``"vpu"``. A kernel that fails to
+    build or launch raises out of the probe.
+    """
+    M = np.asarray(M)
+    probes = None
+    if autotune.mode() == "search":
+        probes = {"vpu": lambda: encode_words(M, data, l),
+                  "mxu": lambda: _encode_mxu_any(M, data, l)}
+    return autotune.dispatch_for(l, int(M.shape[0]), int(data.shape[-2]),
+                                 int(data.shape[-1]), probes=probes, device=data.device)
+
+
+def encode_auto(M: np.ndarray, data: torch.Tensor, l: int) -> torch.Tensor:
+    """Dispatch-tuned word-level encode: the bit-plane ``gf_encode`` or the
+    bit-lift ``gf_encode_mxu``, whichever the tuner measured faster for
+    this (l, shape, backend). (k, B) or a batch (O, k, B) words, B whole
+    int32 lanes."""
+    if dispatch_for_data(M, data, l) == "mxu":
+        return _encode_mxu_any(M, data, l)
+    return encode_words(M, data, l)
+
+
+def encode_block_for(M: np.ndarray, data: torch.Tensor, l: int) -> int:
+    """Resolve (probing in search mode) the tuned threads of a ``gf_encode``
+    block for this (k, B) word geometry on the data's device; used by
+    ``autotune.prewarm``. On the CPU, where the plain version runs, the
+    kernel's own ``ENCODE_THREADS``."""
+    if data.device.type != "cuda":
+        return kernel.ENCODE_THREADS
+    return _tuned_encode_block(np.asarray(M), gf.pack_u32(data, l)[None], l)
+
+
+def mxu_block_for(M: np.ndarray, data: torch.Tensor, l: int) -> int:
+    """The bit-lift kernel's tile width for this geometry: ``MXU_TILE_WORDS``
+    (64 words, wgmma's M). The kernel fixes it and masks a ragged last tile,
+    so there is nothing to sweep (the reference tunes a Pallas tile here)."""
+    del M, data, l
+    return MXU_TILE_WORDS

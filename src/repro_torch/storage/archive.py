@@ -37,10 +37,14 @@ the card (``device``, CUDA unless the caller passes ``device="cpu"``), and
 static-coefficient kernel.
 
 Straggler mitigation: ``node_speeds`` permutes slow nodes to the chain
-ends (the paper's Fig. 5 insight); the manifest records the
-node->codeword-row mapping so decode is permutation-aware. Not ported yet:
-``topology=`` (the heterogeneity-aware scheduler, the control plane of
-ROADMAP Queue 1), which raises NotImplementedError.
+ends (the paper's Fig. 5 insight); ``topology=`` engages the
+heterogeneity-aware scheduler (``repro_torch.core.scheduler``), whose
+plan (chain order and chunk count) the manifest records with the topology
+(``sched``), as the JAX package's does. Either way the manifest records
+the node->codeword-row mapping so decode is permutation-aware. On one
+card the chain order changes which node keeps which codeword row, not the
+kernels' work. Families without a chain encode through ``ops.encode_auto``
+(the bit-plane or the bit-lift kernel, as tuned).
 """
 from __future__ import annotations
 
@@ -51,7 +55,9 @@ import json
 import numpy as np
 import torch
 
-from repro_torch.core import classical, codes, fault_tolerance, gf, rapidraid, streaming
+from repro_torch.core import (classical, codes, fault_tolerance, gf, rapidraid, scheduler,
+                              streaming)
+from repro_torch.core import topology as topo_lib
 from repro_torch.kernels.gf_encode import ops
 from repro_torch.storage import chain as chain_lib
 from repro_torch.storage import multi as multi_lib
@@ -191,21 +197,33 @@ def _hot_load_ex(store: NodeStore, step: int,
 # ---------------------------------------------------------------------------
 
 
-def _plan_placement(acfg: ArchiveConfig, topology, node_speeds) -> np.ndarray:
-    """perm, the physical node of each chain position, for one archival
-    chain.
+def _plan_placement(acfg: ArchiveConfig, block_bytes: int, topology,
+                    node_speeds) -> tuple[np.ndarray, int, dict | None]:
+    """(perm, num_chunks, sched-manifest-entry) for one archival chain.
 
-    ``node_speeds`` keeps the slow-nodes-to-the-ends heuristic
-    (``chain.order_chain``); neither it nor a topology -> in-order
-    placement. ``topology`` needs the scheduler, not ported yet.
+    ``topology`` (a ``repro_torch.core.topology.Topology``) engages the
+    heterogeneity-aware scheduler: chain ordering + chunk count minimizing
+    the modeled makespan, with the plan recorded in the manifest so decode
+    and repair replay the same placement. ``node_speeds`` keeps the older
+    slow-nodes-to-the-ends heuristic. Neither -> in-order placement.
     """
     if topology is not None:
-        raise NotImplementedError(
-            "topology= needs core/scheduler.py and core/topology.py, the control "
-            "plane, not ported yet (ROADMAP Queue 1); pass node_speeds= or nothing")
+        if topology.n_nodes < acfg.n:
+            raise ValueError(
+                f"chain needs {acfg.n} nodes, topology has {topology.n_nodes}")
+        nodes = None
+        if topology.n_nodes > acfg.n:  # pick the n cheapest nodes
+            nodes = sorted(range(topology.n_nodes),
+                           key=lambda i: topo_lib.node_cost(topology, i)
+                           )[: acfg.n]
+        plan = scheduler.plan_chain(topology, acfg.k, float(block_bytes),
+                                    nodes=nodes)
+        return (np.asarray(plan.order), plan.num_chunks,
+                {**plan.to_manifest(), "topology": topology.to_dict()})
     if node_speeds is not None:
-        return chain_lib.order_chain(np.asarray(node_speeds), acfg.n, acfg.k)
-    return np.arange(acfg.n)
+        perm = chain_lib.order_chain(np.asarray(node_speeds), acfg.n, acfg.k)
+        return perm, acfg.num_chunks, None
+    return np.arange(acfg.n), acfg.num_chunks, None
 
 
 def _use_devices(use_devices: bool | None) -> bool:
@@ -228,7 +246,11 @@ def archive_step(store: NodeStore, step: int, acfg: ArchiveConfig,
 
     ``use_devices`` None or True encodes through the pipelined chain on
     ``device``; False through the host oracle ``code.encode_np``.
-    ``topology`` raises NotImplementedError (the scheduler is not ported).
+
+    ``topology`` engages the heterogeneity-aware scheduler
+    (``repro_torch.core.scheduler``): chain placement + chunk count chosen
+    against the topology's makespan model and recorded in the manifest
+    (``perm`` / ``sched``), so repair and decode reuse the placement.
 
     ``superchunk_bytes`` streams the migration: the object archives as
     independent super-chunk stripes through the streaming executor
@@ -257,8 +279,8 @@ def archive_step(store: NodeStore, step: int, acfg: ArchiveConfig,
     code = acfg.code()
 
     # chain position p stores codeword row p on physical node perm[p]
-    perm = _plan_placement(acfg, topology, node_speeds)
-    nc = acfg.num_chunks
+    perm, nc, sched = _plan_placement(acfg, manifest["block_bytes"],
+                                      topology, node_speeds)
 
     if superchunk_bytes is not None:
         wb = acfg.l // 8
@@ -272,7 +294,7 @@ def archive_step(store: NodeStore, step: int, acfg: ArchiveConfig,
                     f"stripe concatenation is not a codeword, so it cannot "
                     f"stream (archive without superchunk_bytes)")
             return _archive_step_streaming(
-                store, step, acfg, manifest, code, perm, nc, plan,
+                store, step, acfg, manifest, code, perm, nc, sched, plan,
                 use_devices, reclaim_hot, device)
         # plan degenerated to one stripe: the monolithic path IS the stream
 
@@ -283,6 +305,8 @@ def archive_step(store: NodeStore, step: int, acfg: ArchiveConfig,
     # which the stricter condition implies)
     while nc > 1 and data_w.shape[1] % (gf.LANES[acfg.l] * nc):
         nc //= 2
+    if sched is not None:
+        sched = {**sched, "num_chunks": int(nc)}  # record what actually ran
     if _use_devices(use_devices) and code.supports_chain_encode:
         coded_w = _host(chain_lib.pipelined_encode(code, data_w, num_chunks=nc,
                                                    device=device))
@@ -310,6 +334,8 @@ def archive_step(store: NodeStore, step: int, acfg: ArchiveConfig,
     }
     if not reclaim_hot:
         manifest["hot_retained"] = True
+    if sched is not None:
+        manifest["sched"] = sched
     _put_manifest(store, step, manifest)
     return manifest
 
@@ -330,13 +356,15 @@ def _hot_holders(store: NodeStore, step: int, manifest: dict) -> list[int]:
 
 def _archive_step_streaming(store: NodeStore, step: int, acfg: ArchiveConfig,
                             manifest: dict, code, perm: np.ndarray, nc: int,
-                            plan: streaming.StreamPlan,
+                            sched: dict | None, plan: streaming.StreamPlan,
                             use_devices: bool | None,
                             reclaim_hot: bool, device) -> dict:
     """The streamed migration: hot range-reads -> stripe encodes -> framed
     coded writes, never holding the object (see ``archive_step``)."""
     k, n, l = acfg.k, acfg.n, acfg.l
     wb = l // 8
+    if sched is not None:
+        sched = {**sched, "num_chunks": int(nc)}
     holders = _hot_holders(store, step, manifest)
     hot_rel = [HOT.format(step=step, j=j) for j in range(k)]
     # hot digests accumulate as the stripes stream past; verified BEFORE
@@ -412,6 +440,8 @@ def _archive_step_streaming(store: NodeStore, step: int, acfg: ArchiveConfig,
     }
     if not reclaim_hot:
         manifest["hot_retained"] = True
+    if sched is not None:
+        manifest["sched"] = sched
     _put_manifest(store, step, manifest)
     return manifest
 
@@ -419,7 +449,7 @@ def _archive_step_streaming(store: NodeStore, step: int, acfg: ArchiveConfig,
 def _archive_group(store: NodeStore, grp: list[int], acfg: ArchiveConfig,
                    code, perm: np.ndarray, num_chunks: int, stagger: int,
                    use_devices: bool, manifests: dict[int, dict],
-                   reclaim_hot: bool, device
+                   sched: dict | None, reclaim_hot: bool, device
                    ) -> dict[int, dict]:
     """Encode one rectangular (same block length, same placement) batch of
     hot steps and place/manifest the coded blocks."""
@@ -431,16 +461,19 @@ def _archive_group(store: NodeStore, grp: list[int], acfg: ArchiveConfig,
     nc = num_chunks
     while nc > 1 and B % (gf.LANES[acfg.l] * nc):
         nc //= 2
+    if sched is not None:
+        sched = {**sched, "num_chunks": int(nc)}  # record what actually ran
     if use_devices and code.supports_chain_encode:
         coded_w = _host(multi_lib.pipelined_encode_many(
             code, objs_w, num_chunks=nc, stagger=stagger, device=device))
     else:
-        # one batched gf_encode launch over the whole group; the message
-        # view is the identity for positionwise codes and the
+        # one batched static-coefficient encode over the whole group (the
+        # bit-plane or the bit-lift kernel, as ``encode_auto`` dispatches);
+        # the message view is the identity for positionwise codes and the
         # sub-packetized (M_sub, W) layout for regenerating codes, so
-        # EVERY family encodes through the same static-coefficient kernel
+        # EVERY family encodes through the same static-coefficient kernels
         msgs = np.stack([np.asarray(code.to_message(o)) for o in objs_w])
-        rows = _encode_static(code.G, msgs, acfg.l, device)
+        rows = _encode_static(code.G, msgs, acfg.l, device, ops.encode_auto)
         coded_w = rows.reshape(len(grp), code.n, -1)
     out: dict[int, dict] = {}
     for b, step in enumerate(grp):
@@ -463,6 +496,8 @@ def _archive_group(store: NodeStore, grp: list[int], acfg: ArchiveConfig,
         }
         if not reclaim_hot:
             manifest["hot_retained"] = True
+        if sched is not None:
+            manifest["sched"] = sched
         _put_manifest(store, step, manifest)
         out[step] = manifest
     return out
@@ -478,15 +513,21 @@ def archive_many(store: NodeStore, steps: list[int], acfg: ArchiveConfig,
     All steps' objects are encoded together — through the staggered
     multi-chain on ``device`` (one run interleaving every object's coding
     chain over the same nodes) or, with ``use_devices=False`` or a family
-    without a chain, ONE batched ``gf_encode`` launch (the object axis rides
-    the kernel grid). Steps whose block lengths differ are grouped so each
-    encode sees a rectangular (B, k, block_len) batch. Returns the updated
-    manifests in step order. ``topology`` raises NotImplementedError (the
-    multi-chain scheduler is not ported).
+    without a chain, ONE batched static-coefficient launch
+    (``ops.encode_auto``; the object axis rides the kernel grid). Steps
+    whose block lengths differ are grouped so each encode sees a
+    rectangular (B, k, block_len) batch. Returns the updated manifests in
+    step order.
+
+    ``topology`` engages the multi-chain scheduler
+    (``repro_torch.core.scheduler.plan_many``): when the cluster holds at
+    least two chains' worth of nodes, concurrent chains are bin-packed onto
+    DISJOINT node sets (no shared NICs); otherwise every chain runs
+    staggered on the one scheduler-ordered node set. Each step's manifest
+    records its placement (``perm`` / ``sched``) so repair reuses it.
     """
     code = acfg.code()
     use_devices = _use_devices(use_devices)
-    perm = _plan_placement(acfg, topology, node_speeds)
 
     manifests: dict[int, dict] = {}
     groups: dict[int, list[int]] = {}
@@ -498,23 +539,41 @@ def archive_many(store: NodeStore, steps: list[int], acfg: ArchiveConfig,
         groups.setdefault(manifest["block_bytes"], []).append(step)
 
     out: dict[int, dict] = {}
-    for grp in groups.values():
-        out.update(_archive_group(store, grp, acfg, code, perm, acfg.num_chunks,
-                                  stagger, use_devices, manifests, reclaim_hot, device))
+    for block_bytes, grp in groups.items():
+        if topology is not None:
+            mplan = scheduler.plan_many(topology, len(grp), acfg.n, acfg.k,
+                                        float(block_bytes), stagger=stagger)
+            by_chain: dict[int, list[int]] = {}
+            for b, s in enumerate(grp):
+                by_chain.setdefault(mplan.assignment[b], []).append(s)
+            for g, sub in sorted(by_chain.items()):
+                plan = mplan.plans[g]
+                out.update(_archive_group(
+                    store, sub, acfg, code, np.asarray(plan.order),
+                    plan.num_chunks, stagger, use_devices, manifests,
+                    {**plan.to_manifest(), "topology": topology.to_dict(),
+                     "chain_group": int(g)}, reclaim_hot, device))
+        else:
+            perm, nc, _ = _plan_placement(acfg, block_bytes, None, node_speeds)
+            out.update(_archive_group(store, grp, acfg, code, perm, nc, stagger,
+                                      use_devices, manifests, None, reclaim_hot, device))
     return [out[s] for s in steps]
 
 
-def _encode_static(M: np.ndarray, x: np.ndarray, l: int, device) -> np.ndarray:
+def _encode_static(M: np.ndarray, x: np.ndarray, l: int, device,
+                   encode=ops.encode_words) -> np.ndarray:
     """(O, rows, W) words = M applied to (O, cols, W) words ``x`` by one
-    ``gf_encode`` launch on ``device``; a W of partial lanes is zero-padded
-    on the way in and trimmed on the way out (the product is per word)."""
+    static-coefficient launch on ``device`` (``encode``: ``ops.encode_words``,
+    the ``gf_encode`` kernel, or ``ops.encode_auto``); a W of partial lanes
+    is zero-padded on the way in and trimmed on the way out (the product is
+    per word)."""
     dev = chain_lib._resolve_device(device)
     W = x.shape[-1]
     pad = -W % gf.LANES[l]
     if pad:
         x = np.concatenate([x, np.zeros(x.shape[:-1] + (pad,), x.dtype)], axis=-1)
-    packed = gf.pack_u32(torch.from_numpy(np.ascontiguousarray(x)).to(dev), l)
-    return _host(gf.unpack_u32(ops.encode_packed(M, packed, l), l))[..., :W]
+    words = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return _host(encode(M, words, l))[..., :W]
 
 
 def reclaim_replicas(store: NodeStore, step: int) -> dict | None:

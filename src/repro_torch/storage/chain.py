@@ -26,10 +26,14 @@ their own, and ``sink(s, words)`` takes each stripe's result instead of a
 whole-object output. The single-stripe plan is the monolithic call, which
 reads its input in place with no graph.
 
+``num_chunks=None`` resolves through the tuner
+(``repro_torch.core.autotune.num_chunks_for``): a cached value for the
+entry point and geometry, else the calibrated model's choice where a chain
+calibration is cached, else the hand-tuned ``DEFAULT_NUM_CHUNKS``.
+
 Not ported yet: the ``mesh=`` / ``order=`` placement of chain positions on
 devices (on one card a chain position is a row of a tensor, so the order
-has no effect on values) and the tuning behind ``num_chunks=None``, which
-here takes the hand-tuned ``DEFAULT_NUM_CHUNKS``.
+has no effect on values).
 """
 from __future__ import annotations
 
@@ -38,11 +42,11 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import gf, jitcache, pipeline, streaming
+from repro_torch.core import autotune, gf, jitcache, pipeline, streaming
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
 
-DEFAULT_NUM_CHUNKS = 8
+DEFAULT_NUM_CHUNKS = autotune.DEFAULT_NUM_CHUNKS
 
 
 def _resolve_device(device=None) -> torch.device:
@@ -126,18 +130,17 @@ def build_local_blocks(code: ErasureCode, data: np.ndarray) -> np.ndarray:
     return np.where(valid[:, :, None], data[idx], 0).astype(data.dtype)
 
 
-def _chunks(num_chunks: int | None, what: str) -> int:
-    """The chunk count, ``DEFAULT_NUM_CHUNKS`` for None, checked >= 1."""
-    if num_chunks is None:
-        return DEFAULT_NUM_CHUNKS
+def _chunks(num_chunks: int, what: str) -> int:
+    """The chunk count, checked >= 1 (the entry points resolve None through
+    ``autotune.num_chunks_for`` first)."""
     if num_chunks < 1:
         raise ValueError(f"{what}: num_chunks must be >= 1, got {num_chunks}")
     return num_chunks
 
 
-def _check_chunking(B: int, l: int, num_chunks: int | None, what: str) -> int:
-    """The chunk count (``DEFAULT_NUM_CHUNKS`` for None), checked to cut a
-    block of B words into chunks of whole uint32 lanes."""
+def _check_chunking(B: int, l: int, num_chunks: int, what: str) -> int:
+    """The chunk count, checked to cut a block of B words into chunks of
+    whole uint32 lanes."""
     num_chunks = _chunks(num_chunks, what)
     lanes = gf.LANES[l]
     if B % (lanes * num_chunks):
@@ -152,7 +155,7 @@ def _check_chunking(B: int, l: int, num_chunks: int | None, what: str) -> int:
 
 
 def stream_plan(total_words: int, superchunk_words: int | None, l: int,
-                num_chunks: int | None, what: str) -> tuple[streaming.StreamPlan, int]:
+                num_chunks: int, what: str) -> tuple[streaming.StreamPlan, int]:
     """(the stripe plan, the chunk count) of a pipelined call, the stripe
     width checked to cut into whole-lane chunks."""
     num_chunks = _chunks(num_chunks, what)
@@ -235,8 +238,8 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
     ``data`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
     (GF(2^16)) words; the result is a tensor of words on ``device``.
     Each tick is one ``chain_tick`` launch over the active nodes, reading
-    the replica blocks in place. ``num_chunks=None`` takes
-    ``DEFAULT_NUM_CHUNKS``.
+    the replica blocks in place. ``num_chunks=None`` is tuned
+    (``autotune.num_chunks_for``).
 
     ``superchunk_words`` streams a host-resident object through the card
     as independent stripes of that many words a block, each one replay of
@@ -251,6 +254,8 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
             f"use code.encode_np")
     dev = _resolve_device(device)
     data = _words(data, code.l, code.k, "pipelined_encode")
+    if num_chunks is None:   # tuned (or hand-tuned default) chunk count
+        num_chunks = autotune.num_chunks_for("encode", code, data.shape[1], device=dev)
     plan, num_chunks = stream_plan(data.shape[1], superchunk_words, code.l, num_chunks,
                                    "pipelined_encode")
     return run_program(("encode", code.cache_key, plan.sc_words, num_chunks, dev),
@@ -345,9 +350,10 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
     object (the JAX package materializes every node's (k, Bp) and keeps
     the last). ``shards`` (len(ids), B) words as a numpy array or tensor;
     returns the (k, B) object as a tensor of words on ``device``.
-    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``. ``superchunk_words``
-    / ``sink`` stream the decode as in ``pipelined_encode``: decode applies
-    D per word, so the stripes concatenate to the monolithic result.
+    ``num_chunks=None`` is tuned (``autotune.num_chunks_for``).
+    ``superchunk_words`` / ``sink`` stream the decode as in
+    ``pipelined_encode``: decode applies D per word, so the stripes
+    concatenate to the monolithic result.
     """
     if not code.positionwise:
         raise ValueError(
@@ -356,11 +362,29 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
     ids = tuple(int(i) for i in ids)
     dev = _resolve_device(device)
     shards = _words(shards, code.l, len(ids), "pipelined_decode")
+    if num_chunks is None:
+        num_chunks = autotune.num_chunks_for("decode", code, shards.shape[1],
+                                             chain_len=len(ids), device=dev)
     plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l, num_chunks,
                                    "pipelined_decode")
     return run_program(("decode", code.cache_key, ids, plan.sc_words, num_chunks, dev),
                        lambda: _build_decode(code, ids, plan.sc_words, num_chunks, dev),
                        shards, plan, sink, dev)
+
+
+def decode_program(code: ErasureCode, ids, sc_words: int,
+                   num_chunks: int = DEFAULT_NUM_CHUNKS, device=None) -> streaming.Program:
+    """The cached decode program of one survivor set and stripe geometry,
+    (len(ids), sc_words) shards -> (k, sc_words) words, under
+    ``pipelined_decode``'s key: what a caller holding the shards on the
+    device (``repro_torch.checkpoint.devio``'s restore) runs itself."""
+    if not code.positionwise:
+        raise ValueError(f"decode_program: {code.family} shards are sub-packetized")
+    ids = tuple(int(i) for i in ids)
+    dev = _resolve_device(device)
+    num_chunks = _check_chunking(sc_words, code.l, num_chunks, "decode_program")
+    return jitcache.get(("decode", code.cache_key, ids, sc_words, num_chunks, dev),
+                        lambda: _build_decode(code, ids, sc_words, num_chunks, dev))
 
 
 def order_chain(node_speeds: np.ndarray, n: int, k: int) -> np.ndarray:

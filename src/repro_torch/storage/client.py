@@ -13,10 +13,9 @@ one vocabulary:
 ====================  =====================================================
 canonical kwarg        meaning
 ====================  =====================================================
-``topology=``          a topology for the scheduler (chain order and chunk
-                       count from its plan — there is no separate ``topo=``
-                       or ``order=``); the scheduler is not ported yet, so
-                       a topology raises NotImplementedError
+``topology=``          a ``repro_torch.core.topology.Topology`` (engages the
+                       scheduler; chain order and chunk count come from the
+                       plan — there is no separate ``topo=`` or ``order=``)
 ``node_speeds=``       relative node speeds for the slow-to-the-ends
                        heuristic (ignored when ``topology`` is given)
 ``use_devices=``       force the device chain on/off (default: on)

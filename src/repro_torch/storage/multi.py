@@ -31,16 +31,18 @@ cached program per (code, survivor set, batch, stripe width, num_chunks,
 stagger, device) key, and ``superchunk_words`` / ``sink`` stream a
 host-resident batch stripe by stripe, as in ``storage.chain``.
 
+``num_chunks=None`` and ``stagger=None`` resolve through the tuner
+(``repro_torch.core.autotune.num_chunks_for`` / ``stagger_for``), whose
+hand-tuned defaults are ``chain.DEFAULT_NUM_CHUNKS`` and a stagger of 1.
+
 Not ported yet: the ``mesh=`` / ``order=`` placement of chain positions on
-devices and the tuning behind ``num_chunks=None`` and ``stagger=None``,
-which here take ``chain.DEFAULT_NUM_CHUNKS`` and a stagger of 1 (the
-tuner's default).
+devices.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import gf, pipeline, streaming
+from repro_torch.core import autotune, gf, pipeline, streaming
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import ops
 from repro_torch.storage.chain import (_resolve_device, decode_tables, device_tables,
@@ -50,10 +52,13 @@ from repro_torch.storage.chain import (_resolve_device, decode_tables, device_ta
 DEFAULT_STAGGER = 1
 
 
-def check_stagger(stagger: int | None, what: str) -> int:
-    """The stagger (``DEFAULT_STAGGER`` for None), checked to be >= 1."""
+def tuned_stagger(code: ErasureCode, B_obj: int, num_chunks: int, stagger: int | None,
+                  device: torch.device, what: str) -> int:
+    """The stagger: ``autotune.stagger_for`` for None (``DEFAULT_STAGGER``
+    until a cache says otherwise), else ``stagger`` checked to be >= 1."""
     if stagger is None:
-        return DEFAULT_STAGGER
+        return autotune.stagger_for(code, B_obj, num_chunks, default=DEFAULT_STAGGER,
+                                    device=device)
     if stagger < 1:
         raise ValueError(f"{what}: stagger must be >= 1, got {stagger}")
     return int(stagger)
@@ -110,8 +115,8 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     every (node, object) with a chunk at that tick reads its replica blocks
     in place through the slot table, writes its codeword chunk straight
     into object b's row of the output, and forwards its wire in slot
-    b % W. ``num_chunks=None`` takes ``chain.DEFAULT_NUM_CHUNKS``,
-    ``stagger=None`` takes 1. ``superchunk_words`` streams the whole batch
+    b % W. ``num_chunks=None`` and ``stagger=None`` are tuned
+    (``autotune``). ``superchunk_words`` streams the whole batch
     stripe by stripe, each stripe one staggered run of the same cached
     program, and ``sink(s, (B_obj, n, W) words)`` takes each stripe's
     result instead of an assembled batch.
@@ -123,10 +128,12 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     what = "pipelined_encode_many"
     dev = _resolve_device(device)
     objects = batch_words(objects, code.l, code.k, what, "objects", "k")
-    B_obj = objects.shape[0]
-    plan, num_chunks = stream_plan(objects.shape[2], superchunk_words, code.l, num_chunks,
-                                   what)
-    stagger = check_stagger(stagger, what)
+    B_obj, _, B = objects.shape
+    if num_chunks is None:
+        num_chunks = autotune.num_chunks_for("encode_many", code, B, extra_key=(B_obj,),
+                                             device=dev)
+    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
+    stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
         ("encode_many", code.cache_key, B_obj, plan.sc_words, num_chunks, stagger, dev),
         lambda: _build_encode_many(code, B_obj, plan.sc_words, num_chunks, stagger, dev),
@@ -172,8 +179,8 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
     (node, object) with a chunk adds its column of the decode matrix times
     its shard chunk, read in place, to the k partial sums in slot b % W of
     the wire; the last node writes object b's decoded chunk. Node 0 starts
-    from zero sums. ``num_chunks=None`` takes ``chain.DEFAULT_NUM_CHUNKS``,
-    ``stagger=None`` takes 1. ``superchunk_words`` / ``sink`` stream the
+    from zero sums. ``num_chunks=None`` and ``stagger=None`` are tuned
+    (``autotune``). ``superchunk_words`` / ``sink`` stream the
     batch stripe by stripe, as in ``pipelined_encode_many``.
     """
     if not code.positionwise:
@@ -184,10 +191,12 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
     ids = tuple(int(i) for i in ids)
     dev = _resolve_device(device)
     shards = batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
-    B_obj = shards.shape[0]
-    plan, num_chunks = stream_plan(shards.shape[2], superchunk_words, code.l, num_chunks,
-                                   what)
-    stagger = check_stagger(stagger, what)
+    B_obj, _, B = shards.shape
+    if num_chunks is None:
+        num_chunks = autotune.num_chunks_for("decode_many", code, B, chain_len=len(ids),
+                                             extra_key=(B_obj,), device=dev)
+    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
+    stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
         ("decode_many", code.cache_key, ids, B_obj, plan.sc_words, num_chunks, stagger, dev),
         lambda: _build_decode_many(code, ids, B_obj, plan.sc_words, num_chunks, stagger, dev),

@@ -7,21 +7,135 @@ one host's local disk. Blocks are the unit of placement and coding: an
 object's bytes are split into k equal blocks (padded to whole lanes), the
 "object o = (o_1, ..., o_k)" of the paper.
 
+Codec: a checkpoint tree (nested ``dict`` / ``OrderedDict`` / ``list`` /
+``tuple`` / ``None`` over tensors, numpy arrays and numbers) is serialized
+to one contiguous buffer (header JSON + raw leaf bytes), then split into k
+blocks.
+
 The on-disk layout, the block split and the digests are the JAX package's
-(``repro.storage.object_store``), so either package reads what the other
-wrote. Its checkpoint tree serializers are not here: they write a JAX
-pytree's ``str(treedef)`` into the blob, and a torch state's blob is a
-design of its own (the checkpoint slice).
+(``repro.storage.object_store``), and so is the blob: the tree is flattened
+in JAX's order (a ``dict`` by sorted keys, an ``OrderedDict`` in insertion
+order, ``None`` an empty subtree) and the header records the
+``str(treedef)`` that jax prints for the same containers. A state built
+from the same containers therefore serializes to the same bytes in both
+packages, and either package restores the other's checkpoints.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
+import json
+import numbers
 import os
 import shutil
 
 import numpy as np
 import torch
+
+MAGIC = b"RRCK"
+
+
+# ---------------------------------------------------------------------------
+# trees (of tensors / numpy arrays / numbers) <-> bytes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeDef:
+    """The structure of a flattened tree: ``kind`` is ``"leaf"``, ``"none"``,
+    ``"dict"``, ``"odict"``, ``"list"`` or ``"tuple"``; ``keys`` the dict
+    keys in flatten order; ``children`` the subtrees in that order.
+
+    ``str()`` is jax's ``PyTreeDef(...)`` of the same containers, which the
+    checkpoint header records (``tree_header``)."""
+
+    kind: str
+    keys: tuple = ()
+    children: tuple = ()
+
+    @property
+    def num_leaves(self) -> int:
+        if self.kind == "leaf":
+            return 1
+        return sum(c.num_leaves for c in self.children)
+
+    def _body(self) -> str:
+        if self.kind == "leaf":
+            return "*"
+        if self.kind == "none":
+            return "None"
+        kids = [c._body() for c in self.children]
+        if self.kind == "dict":
+            return "{" + ", ".join(f"{k!r}: {v}" for k, v in zip(self.keys, kids)) + "}"
+        if self.kind == "odict":
+            return f"CustomNode(OrderedDict[{self.keys!r}], [{', '.join(kids)}])"
+        if self.kind == "list":
+            return "[" + ", ".join(kids) + "]"
+        return "(" + ", ".join(kids) + ("," if len(kids) == 1 else "") + ")"
+
+    def __str__(self) -> str:
+        return f"PyTreeDef({self._body()})"
+
+    def unflatten(self, leaves):
+        """The tree of this structure over ``leaves`` (flatten order)."""
+        leaves = list(leaves)
+        if len(leaves) != self.num_leaves:
+            raise ValueError(f"{str(self)} takes {self.num_leaves} leaves, "
+                             f"got {len(leaves)}")
+        it = iter(leaves)
+        return self._build(it)
+
+    def _build(self, it):
+        if self.kind == "leaf":
+            return next(it)
+        if self.kind == "none":
+            return None
+        kids = [c._build(it) for c in self.children]
+        if self.kind == "dict":
+            return dict(zip(self.keys, kids))
+        if self.kind == "odict":
+            return collections.OrderedDict(zip(self.keys, kids))
+        return kids if self.kind == "list" else tuple(kids)
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, numbers.Number))
+
+
+def tree_flatten(tree, is_leaf=None) -> tuple[list, TreeDef]:
+    """(leaves, treedef) in jax's flatten order: a ``dict`` by sorted keys,
+    an ``OrderedDict`` in insertion order, ``list`` / ``tuple`` in order,
+    ``None`` an empty subtree. Leaves are tensors, numpy arrays, numpy
+    scalars and Python numbers, and whatever ``is_leaf`` accepts; any other
+    container raises TypeError."""
+    leaves: list = []
+
+    def walk(x) -> TreeDef:
+        if x is None:
+            return TreeDef("none")
+        if _is_leaf(x) or (is_leaf is not None and is_leaf(x)):
+            leaves.append(x)
+            return TreeDef("leaf")
+        if type(x) is collections.OrderedDict:
+            keys = tuple(x)
+            return TreeDef("odict", keys, tuple(walk(x[k]) for k in keys))
+        if type(x) is dict:
+            keys = tuple(sorted(x))
+            return TreeDef("dict", keys, tuple(walk(x[k]) for k in keys))
+        if type(x) in (list, tuple):
+            return TreeDef("list" if type(x) is list else "tuple", (),
+                           tuple(walk(c) for c in x))
+        raise TypeError(f"cannot flatten a {type(x).__name__}: checkpoint trees are "
+                        f"dict / OrderedDict / list / tuple / None over tensors, "
+                        f"numpy arrays and numbers")
+
+    treedef = walk(tree)
+    return leaves, treedef
+
+
+def tree_unflatten(treedef: TreeDef, leaves):
+    return treedef.unflatten(leaves)
 
 
 def _dtype_name(dt) -> tuple[str, int]:
@@ -63,9 +177,86 @@ def leaf_metas(leaves) -> list[dict]:
     return metas
 
 
+def tree_header(treedef, metas: list[dict]) -> bytes:
+    """Blob prefix: magic + header length + header JSON. The body (raw leaf
+    bytes at the metas' offsets) follows immediately after."""
+    header = json.dumps({"treedef": str(treedef), "leaves": metas}).encode()
+    return MAGIC + len(header).to_bytes(8, "little") + header
+
+
+def leaf_bytes(leaf) -> bytes:
+    """A leaf's raw little-endian bytes, as the blob holds them. A tensor is
+    read through its uint8 view (a bfloat16 never passes through numpy)."""
+    if isinstance(leaf, torch.Tensor):
+        x = leaf.detach().contiguous().reshape(-1)
+        if x.device.type == "meta":
+            raise ValueError("a tensor on the meta device has no bytes to save")
+        return x.view(torch.uint8).cpu().numpy().tobytes()
+    return np.ascontiguousarray(np.asarray(leaf)).tobytes()
+
+
+def tree_to_bytes(tree) -> bytes:
+    leaves, treedef = tree_flatten(tree)
+    metas = leaf_metas(leaves)
+    return tree_header(treedef, metas) + b"".join(leaf_bytes(x) for x in leaves)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a header's numpy-style dtype name records."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"corrupt checkpoint blob: unknown dtype {name!r}")
+    return dt
+
+
+def bytes_leaf(raw, meta: dict, like):
+    """One leaf from its blob bytes ``raw`` (a uint8 buffer of
+    ``meta["nbytes"]``), in the kind of its template ``like``: a CPU tensor
+    for a tensor template (read as uint8 and viewed as its dtype, bfloat16
+    included), else a numpy array."""
+    if isinstance(like, torch.Tensor):
+        u8 = (torch.frombuffer(bytearray(raw), dtype=torch.uint8) if len(raw)
+              else torch.empty(0, dtype=torch.uint8))
+        return u8.view(torch_dtype(meta["dtype"])).reshape(meta["shape"])
+    return np.frombuffer(raw, dtype=np.uint8).view(np.dtype(meta["dtype"])) \
+        .reshape(meta["shape"])
+
+
+def bytes_to_leaves(blob: bytes, like_tree):
+    """Rebuild the tree; its structure comes from ``like_tree``, each leaf
+    in its template's kind (``bytes_leaf``)."""
+    # real exceptions, not asserts: corruption checks must survive python -O
+    if blob[:4] != MAGIC:
+        raise ValueError(
+            f"corrupt checkpoint blob: bad magic {blob[:4]!r} (want {MAGIC!r})")
+    hlen = int.from_bytes(blob[4:12], "little")
+    if 12 + hlen > len(blob):
+        raise ValueError(
+            f"corrupt checkpoint blob: header length {hlen} exceeds blob")
+    try:
+        header = json.loads(blob[12:12 + hlen])
+    except json.JSONDecodeError as e:
+        raise ValueError(f"corrupt checkpoint blob: bad header ({e})") from None
+    body = memoryview(blob)[12 + hlen:]
+    leaves_like, treedef = tree_flatten(like_tree)
+    metas = header["leaves"]
+    if len(metas) != len(leaves_like):
+        raise ValueError(
+            f"checkpoint has {len(metas)} leaves, expected {len(leaves_like)}")
+    out = []
+    for idx, (meta, like) in enumerate(zip(metas, leaves_like)):
+        a = meta["offset"]
+        raw = body[a:a + meta["nbytes"]]
+        if len(raw) != meta["nbytes"]:
+            raise ValueError(f"corrupt checkpoint blob: leaf {idx} ends past the blob")
+        out.append(bytes_leaf(raw, meta, like))
+    return treedef.unflatten(out)
+
+
 def block_bytes_for(blob_len: int, k: int, lane_bytes: int = 8) -> int:
     """Per-block byte length of a k-way split: ceil(blob_len / k) rounded up
-    to whole lanes."""
+    to whole lanes. The device-direct packer sizes its padding with this so
+    its blocks match ``split_blocks`` exactly."""
     per = -(-blob_len // k)
     return -(-per // lane_bytes) * lane_bytes
 

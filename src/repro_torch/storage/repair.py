@@ -44,9 +44,9 @@ survivor shard it is given, so a caller passes only the plan's helpers
 (``repair_plan``) to copy no more than the chain reads, as
 ``storage.archive`` does.
 
-Not ported yet: the tuning behind ``num_chunks=None`` and ``stagger=None``
-(here the hand-tuned ``DEFAULT_NUM_CHUNKS`` and a stagger of 1) and
-``mesh=``.
+``num_chunks=None`` and ``stagger=None`` resolve through the tuner
+(``repro_torch.core.autotune``), over a chain of the plan's helpers. Not
+ported yet: ``mesh=``.
 """
 from __future__ import annotations
 
@@ -55,7 +55,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import fault_tolerance, gf, pipeline, streaming
+from repro_torch.core import autotune, fault_tolerance, gf, pipeline, streaming
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
 from repro_torch.storage import multi
@@ -192,8 +192,8 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
     replacement node; each tick is one ``repair_tick`` launch over the
     active helpers, which read their shards where they lie in ``shards``
     (no gather), and the replacement ends up with the repaired
-    (|missing|, B) words, returned on ``device``. ``num_chunks=None`` takes
-    ``DEFAULT_NUM_CHUNKS``. ``superchunk_words`` / ``sink`` stream the
+    (|missing|, B) words, returned on ``device``. ``num_chunks=None`` is
+    tuned (``autotune.num_chunks_for``). ``superchunk_words`` / ``sink`` stream the
     repair stripe by stripe (``storage.chain.pipelined_encode``), so a lost
     node on a many-stripe object heals without the card ever holding the
     whole shards. Raises ValueError if the survivors are not decodable.
@@ -203,8 +203,12 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
     missing = tuple(int(m) for m in missing)
     dev = _resolve_device(device)
     shards = _survivor_shards(code, ids, shards, what)
-    plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l, num_chunks,
-                                   what)
+    B = shards.shape[1]
+    if num_chunks is None:
+        helpers, _ = _repair_plan_cached(code, missing, ids)
+        num_chunks = autotune.num_chunks_for("repair", code, B, chain_len=len(helpers),
+                                             device=dev)
+    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
     return run_program(
         ("repair", code.cache_key, missing, ids, plan.sc_words, num_chunks, dev),
         lambda: _build_repair(code, missing, ids, None, plan.sc_words, num_chunks, 0, dev),
@@ -223,8 +227,8 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     (B_obj, |missing|, B) words on ``device``. Each tick is one
     ``repair_tick`` launch over the object window; each chain position
     reads its helper's shard of object b in place from ``shards``.
-    ``num_chunks=None`` takes ``DEFAULT_NUM_CHUNKS``, ``stagger=None``
-    takes 1. ``superchunk_words`` / ``sink`` stream the batch stripe by
+    ``num_chunks=None`` and ``stagger=None`` are tuned (``autotune``).
+    ``superchunk_words`` / ``sink`` stream the batch stripe by
     stripe. Raises ValueError if the survivors are not decodable.
     """
     what = "pipelined_repair_many"
@@ -235,10 +239,13 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     missing = tuple(int(m) for m in missing)
     dev = _resolve_device(device)
     shards = multi.batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
-    B_obj = shards.shape[0]
-    plan, num_chunks = stream_plan(shards.shape[2], superchunk_words, code.l, num_chunks,
-                                   what)
-    stagger = multi.check_stagger(stagger, what)
+    B_obj, _, B = shards.shape
+    if num_chunks is None:
+        helpers, _ = _repair_plan_cached(code, missing, ids)
+        num_chunks = autotune.num_chunks_for("repair_many", code, B, chain_len=len(helpers),
+                                             extra_key=(B_obj,), device=dev)
+    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
+    stagger = multi.tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
         ("repair_many", code.cache_key, missing, ids, B_obj, plan.sc_words, num_chunks,
          stagger, dev),

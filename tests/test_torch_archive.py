@@ -507,11 +507,30 @@ def test_manifest_replicas_and_validation(tmp_path):
 
 
 def test_topology_is_not_ported_yet(tmp_path):
-    store = _store_with(tmp_path, blocks_for(K, 64))
-    for call in (lambda: arc.archive_step(store, 1, ACFG, topology=object(), device="cpu"),
-                 lambda: arc.archive_many(store, [1], ACFG, topology=object(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="control plane"):
-            call()
+    """``topology=`` (ported with the scheduler) writes the JAX package's
+    trees: ``archive_step`` on a slowed topology with spare nodes, and
+    ``archive_many`` on one shared chain and on two disjoint chains; every
+    manifest carries the same ``sched`` and ``topology``."""
+    from repro.core import topology as jtopo
+    from repro_torch.core import topology as topo
+    for case, (n_nodes, steps) in enumerate([(N + 2, [1]), (N, [1, 2, 3]), (2 * N, [1, 2, 3])]):
+        t, jt = (lib.Topology.uniform(n_nodes).with_slow(1, 4.0).with_slow(5, 2.0)
+                 for lib in (topo, jtopo))
+        pair = Pair(tmp_path / str(case), ACFG, jarc.ArchiveConfig(n=N, k=K, l=L, seed=5,
+                                                                   num_chunks=4))
+        for s in steps:
+            pair.hot_save(s, blocks_for(K, 256, seed=s))
+        if len(steps) == 1:
+            got = [arc.archive_step(pair.store, 1, ACFG, topology=t, device="cpu")]
+            want = [jarc.archive_step(pair.jstore, 1, pair.jacfg, topology=jt)]
+        else:
+            got = arc.archive_many(pair.store, steps, ACFG, topology=t, device="cpu")
+            want = jarc.archive_many(pair.jstore, steps, pair.jacfg, topology=jt)
+        assert got == want and all("sched" in m and "topology" in m["sched"] for m in got)
+        pair.same()
+    with pytest.raises(ValueError, match="topology has"):
+        arc.archive_step(_store_with(tmp_path / "small", blocks_for(K, 64)), 1, ACFG,
+                         topology=topo.Topology.uniform(N - 1), device="cpu")
 
 
 def test_read_result_rejects_unknown_route():

@@ -178,11 +178,18 @@ def test_unknown_kwarg_rejected_everywhere(tmp_path):
 
 
 def test_topology_raises_until_the_scheduler_is_ported(tmp_path):
-    _, cli = _pair(tmp_path)
-    cli.put_hot(1, _blocks())
-    cli.topology = object()
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        cli.archive(1)
+    """The client's ``topology`` default reaches the scheduler (ported): its
+    archive equals the free function's with the same topology."""
+    from repro_torch.core import topology
+    free, cli = _pair(tmp_path)
+    blocks = _blocks()
+    arc.hot_save(free, 1, blocks, ACFG)
+    cli.put_hot(1, blocks)
+    cli.topology = topology.Topology.uniform(ACFG.n).with_slow(2, 3.0)
+    got = cli.archive(1)
+    assert got == arc.archive_step(free, 1, ACFG, topology=cli.topology, device="cpu")
+    assert got["sched"]["topology"] == cli.topology.to_dict()
+    np.testing.assert_array_equal(cli.read(1).data, blocks)
 
 
 # ---------------------------------------------------------------------------

@@ -193,8 +193,13 @@ def test_decode_and_repair_many_match_per_object_oracles(n, k, l, num_objects, s
     np.testing.assert_array_equal(rep.numpy(), cw[:, lost])
 
 
-def test_defaults_are_eight_chunks_and_stagger_one(monkeypatch):
-    """``num_chunks=None`` / ``stagger=None`` run 8 chunks at stagger 1."""
+def test_defaults_are_eight_chunks_and_stagger_one(monkeypatch, tmp_path):
+    """``num_chunks=None`` / ``stagger=None`` run 8 chunks at stagger 1
+    under an empty tuning cache."""
+    from repro_torch.core import autotune
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    monkeypatch.delenv(autotune.TUNE_ENV, raising=False)
+    autotune.reset()
     code = rr.RapidRAIDCode.make(8, 4, l=16, seed=7)
     objects = words(np.random.default_rng(0), (3, 4, 2 * 8 * 2), 16)
     seen = []

@@ -13,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import gf, pipeline, rapidraid as rr  # noqa: E402
+from repro_torch.core import autotune, gf, pipeline, rapidraid as rr  # noqa: E402
 from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
 from repro_torch.storage import chain, repair  # noqa: E402
 
@@ -72,10 +72,13 @@ def chain_case(rng, l, max_b, n, O, chunks, S, R=7):
 
 
 @pytest.mark.parametrize("entry", ["encode", "decode", "repair"])
-def test_num_chunks_none_is_the_default(entry, monkeypatch):
+def test_num_chunks_none_is_the_default(entry, monkeypatch, tmp_path):
     """``num_chunks=None`` (every entry point's default, as in the JAX
-    package) runs as ``DEFAULT_NUM_CHUNKS`` (8) chunks; bad counts still
-    raise ValueError."""
+    package) runs as ``DEFAULT_NUM_CHUNKS`` (8) chunks under an empty tuning
+    cache; bad counts still raise ValueError."""
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    monkeypatch.delenv(autotune.TUNE_ENV, raising=False)
+    autotune.reset()
     assert chain.DEFAULT_NUM_CHUNKS == 8
     code = rr.RapidRAIDCode.make(8, 4, l=16, seed=13)
     data = np.random.default_rng(2).integers(0, 1 << 16, size=(4, 8 * 2 * 6)).astype(np.uint16)
