@@ -135,11 +135,38 @@ last line:
    slowed 4x records the scheduler's plan and restores bit for bit; and
    ``python -m repro_torch.autotune`` on the warm cache exits 0 with zero
    probes.
+15. The live cluster at a real size: the (16,11) GF(2^16) code on a
+   16-node ``ChurnNodeStore`` in a temporary directory, blocks of 16 MiB
+   (objects of 176 MiB), ``LifecycleConfig(arrival_rate=1.0,
+   archive_age=3, batch_max=4)`` under ``churn.bounded_trace(16, 11, 24,
+   fail_rate=0.05)``, behind ``benchmarks/fig_serving.py``'s admission
+   controller (rate 2, burst 4, read capacity 8, 2 in flight), served by
+   ``ServingEngine`` over the default ``WorkloadConfig`` (8 reads a tick,
+   Zipf 1.1 over 16 ranks, 4-256 KiB, 2M users) for 24 ticks, with the
+   counters at 0 just before the first tick and read after the last
+   (``chain_tick`` for the migrations, ``repair_tick`` for the coded
+   scrub). Checks: no lost object, no wrong byte, shards healed,
+   ``verify_all`` restores every object digest-verified. Printed: each
+   tick's wall and the kernels' share of it, the peak bytes on disk, the
+   modelled read latencies. Then the same trace and workload at 4 KiB
+   blocks on the card and with the plain versions (``device="cpu"``):
+   per-tick rows, serving reports and store trees equal, file by file.
+16. LM serving: qwen3-1.7b at full width and depth (28 layers, d_model
+   2048, vocab 151936, 2.03 B float32 parameters made on the card from the
+   seed) serves a batch of 4 prompts of 2048 tokens and 64 greedy new
+   tokens through ``launch.serve.generate`` in bfloat16 (prefill wall,
+   decode tokens/s, peak device bytes; no GF kernel launches); 4 decode
+   steps after a prefill against one prefill over the longer prompt, in
+   float32 (TF32 off) at rtol = atol = 2e-2 and in bfloat16 within 2e-2 of
+   the logits' largest magnitude; a 2-layer full-width copy in float32
+   (TF32 off) on the card against the host: the same greedy tokens, logits
+   within 1e-3.
 
 Then one JSON line with every kernel's numbers over all of the run's
 launches (the staggered launches of phase 8 in rows of their own;
 ``slice_launches``: each kernel's launches over phases 13-14's counted
-runs, every one of which must be above 0), and the device line.
+runs, every one of which must be above 0, and over phase 15's soak), and
+the device line.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -148,6 +175,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import hashlib
 import itertools
 import json
@@ -166,11 +194,16 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.checkpoint import devio, manager  # noqa: E402
-from repro_torch.core import (autotune, classical, codes, fault_tolerance, gf,  # noqa: E402
-                              jitcache,
+from repro_torch.core import (autotune, churn, classical, codes, fault_tolerance,  # noqa: E402
+                              gf, jitcache,
                               pipeline, rapidraid, scheduler, streaming, topology)
 from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
-from repro_torch.storage import archive, atomic, chain, multi, object_store, repair  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.admission import AdmissionConfig, AdmissionController  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.storage import (archive, atomic, chain, lifecycle, multi,  # noqa: E402
+                                 object_store, repair, serving, workload)
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet and
 # Hopper white paper): HBM3 bandwidth, the non-tensor INT32 rate
@@ -232,6 +265,24 @@ CKPT_RANGE_BYTES = 1 << 20               # phase 13: read_range across a leaf bo
 TUNE_BLOCK_WORDS = 1 << 25               # phase 14: the paper's block, 2^25 words
 TUNE_OBJECTS = 4                         # phase 14: prewarm's b_obj
 SLOW_NODES = (3, 9)                      # phase 14: slowed 4x in the archive's topology
+LIVE_BLOCK_BYTES = 16 << 20              # phase 15: blocks of 16 MiB, objects of 176 MiB
+LIVE_TICKS = 24                          # phase 15: ticks of churn, arrivals and reads
+# Phase 15's churn: at 0.03 the seed-0 trace heals nothing, because the
+# admission controller (read_capacity = the mean request rate) denies every
+# routine repair and no loss is urgent; at 0.05 the scrub heals shards.
+LIVE_FAIL_RATE = 0.05
+LIVE_PARITY_BLOCK_BYTES = 4 << 10        # phase 15: the card-against-plain run
+LM_ARCH = "qwen3-1.7b"                   # phase 16: served at full width and depth
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 64    # phase 16: four q_chunks of prompt
+LM_CHECK_STEPS = 4                       # phase 16: decode steps held against one prefill
+# Phase 16's consistency bound: tests/test_models.py:86's rtol = atol in
+# float32; in bfloat16 the largest error within it of the logits' scale (a
+# (B, 1, D) product and a (B, S, D) one round differently, and at 28 layers
+# 5-6% of the logits fall outside the elementwise bound while float32 agrees
+# to 2e-5).
+LM_TOL = 2e-2
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_NEW = 2, 2, 32, 8
+LM_CPU_TOL = 1e-3                        # phase 16: float32 card (TF32 off) vs host, rtol = atol
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -1909,6 +1960,254 @@ def phase_control_plane(code, dev, seed: int) -> dict:
     return tally
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the live cluster
+# ---------------------------------------------------------------------------
+
+
+def live_engine(root: str, dev, seed: int, block_bytes: int) -> serving.ServingEngine:
+    """Phase 15's cluster: the (16,11) GF(2^16) code on a 16-node
+    ``ChurnNodeStore``, one arrival a tick archived at age 3 in batches of up
+    to 4 under the bounded churn trace, behind ``fig_serving``'s admission
+    controller, served through ``ServingEngine`` on ``dev``."""
+    acfg = archive.ArchiveConfig(n=N, k=K, l=L, seed=seed, num_chunks=NUM_CHUNKS)
+    lcfg = lifecycle.LifecycleConfig(arrival_rate=1.0, block_bytes=block_bytes,
+                                     archive_age=3, batch_max=4, seed=seed)
+    trace = churn.bounded_trace(N, K, LIVE_TICKS, fail_rate=LIVE_FAIL_RATE, seed=seed)
+    ctrl = AdmissionController(AdmissionConfig(rate=2.0, burst=4.0, read_capacity=8,
+                                               max_inflight=2))
+    lc = lifecycle.ClusterLifecycle(root, acfg, lcfg, trace, admission=ctrl, device=dev)
+    return serving.ServingEngine(lc)
+
+
+def tree_files(root: str) -> dict[str, bytes]:
+    """Every file under ``root``: relative path -> bytes."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def phase_live(dev, seed: int) -> dict:
+    """Phase 15: the live cluster at a real size — churn, arrivals, admission-
+    throttled migration and scrub, and served reads — then the same run at
+    4 KiB blocks on the card and with the plain versions. Returns the
+    kernels' launches over the soak."""
+    wtrace = workload.synthetic_workload(workload.WorkloadConfig(seed=seed), LIVE_TICKS)
+    by_tick = wtrace.by_tick()
+    obj_bytes = K * LIVE_BLOCK_BYTES
+    print(f"live cluster: ({N},{K}) GF(2^{L}) seed={seed}, {N}-node ChurnNodeStore under a "
+          f"temporary directory, blocks of {LIVE_BLOCK_BYTES} bytes (objects of "
+          f"{obj_bytes >> 20} MiB), LifecycleConfig(arrival_rate=1.0, archive_age=3, "
+          f"batch_max=4), bounded_trace({N}, {K}, {LIVE_TICKS}, fail_rate={LIVE_FAIL_RATE}), "
+          f"{len(wtrace.requests)} requests (WorkloadConfig defaults), AdmissionConfig(rate=2.0, "
+          f"burst=4.0, read_capacity=8, max_inflight=2) ({smi('name,power.limit')})")
+    root = tempfile.mkdtemp(prefix="chip_smoke_live-")
+    try:
+        eng = live_engine(root, dev, seed, LIVE_BLOCK_BYTES)
+        timer, peak_disk, walls, k_total = KernelTimer(), 0, [], 0.0
+        torch.cuda.synchronize()
+        kernel.reset_launch_counts()
+        with timer.active():
+            for t in range(LIVE_TICKS):
+                spans = len(timer.spans)
+                t0 = time.perf_counter()
+                row = eng.tick(by_tick.get(t, []))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                k_ms = sum(a.elapsed_time(b) for a, b in timer.spans[spans:])
+                k_total += k_ms
+                walls.append(wall)
+                disk = tree_bytes(root)
+                peak_disk = max(peak_disk, disk)
+                print(f"tick {t}: {wall * 1e3:.1f} ms wall, kernels {k_ms:.3f} ms "
+                      f"({100 * k_ms / (wall * 1e3):.3f}%), fails {row['fails']} joins "
+                      f"{row['joins']} down {row['down_nodes']}, reads {len(by_tick.get(t, []))}, "
+                      f"archived {row['archived']} sealed {row['sealed']} repaired "
+                      f"{row['repaired_shards']} re-replicated {row['re_replicated']}, objects hot "
+                      f"{row['objects_hot']} archived {row['objects_archived']} sealed "
+                      f"{row['objects_sealed']}, bg granted {row['bg_granted']} urgent "
+                      f"{row['bg_urgent']} denied {row['bg_denied']}, {disk} bytes on disk")
+        counts = kernel.launch_counts()
+        rep = eng.report()
+        life = rep["lifecycle"]
+        check(counts["chain_tick"] > 0 and counts["repair_tick"] > 0,
+              f"the soak launched chain_tick and repair_tick: {counts}")
+        check(life["lost_objects"] == 0, f"lost objects {life['lost_objects']}")
+        check(rep["wrong_bytes"] == 0, f"wrong bytes {rep['wrong_bytes']}")
+        check(life["total_repaired_shards"] > 0,
+              f"the scrub healed shards: {life['total_repaired_shards']}")
+        check(life["scrub_errors"] == 0 and not eng.lc.scrub_errors,
+              f"scrub errors {eng.lc.scrub_errors}")
+        t0 = time.perf_counter()
+        restored = eng.lc.verify_all()
+        verify_s = time.perf_counter() - t0
+        check(restored == life["objects"] == len(eng.lc.objects),
+              f"verify_all restored {restored} of {life['objects']} objects")
+        soak_s = sum(walls)
+        print(f"soak: {LIVE_TICKS} ticks in {soak_s:.3f} s (ticks {min(walls):.3f}-"
+              f"{max(walls):.3f} s), kernels {k_total:.3f} ms ({100 * k_total / soak_s / 1e3:.3f}% "
+              f"of the walls), launches {({n: c for n, c in counts.items() if c})}, peak "
+              f"{peak_disk} bytes on disk ({peak_disk / 2**30:.3f} GiB)")
+        print(f"serving: {rep['count']} reads served ({rep['served']}), {rep['unresolved']} "
+              f"unresolved, wrong bytes {rep['wrong_bytes']}; modelled latency p50 "
+              f"{rep['p50'] * 1e3:.3f} ms, p99 {rep['p99'] * 1e3:.3f} ms, p999 "
+              f"{rep['p999'] * 1e3:.3f} ms; admission {rep['admission']}")
+        print(f"lifecycle: {life}; verify_all restored {restored} objects digest-verified in "
+              f"{verify_s:.3f} s (host decode)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the same trace and workload at 4 KiB blocks: the card and the plain versions
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        root = tempfile.mkdtemp(prefix="chip_smoke_live_small-")
+        try:
+            eng = live_engine(root, where, seed, LIVE_PARITY_BLOCK_BYTES)
+            kernel.reset_launch_counts()
+            rep = eng.run(wtrace, LIVE_TICKS)
+            runs[where.type] = (eng.lc.metrics, rep, eng.requests, tree_files(root),
+                                kernel.launch_counts(), eng.lc.verify_all())
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    card, plain = runs["cuda"], runs["cpu"]
+    check(card[4]["chain_tick"] > 0 and plain[4] == dict.fromkeys(plain[4], 0),
+          f"the 4 KiB run's launches: card {card[4]}, plain {plain[4]}")
+    check(card[0] == plain[0], "4 KiB: per-tick rows on the card == plain versions")
+    check(card[1] == plain[1] and card[2] == plain[2],
+          "4 KiB: serving reports on the card == plain versions")
+    check(sorted(card[3]) == sorted(plain[3]) and card[3] == plain[3] and card[5] == plain[5],
+          "4 KiB: store trees on the card == plain versions, file by file")
+    print(f"checks: zero lost objects, zero wrong bytes, verify_all restores every object, "
+          f"{life['total_repaired_shards']} shards healed, chain_tick and repair_tick launched; "
+          f"at {LIVE_PARITY_BLOCK_BYTES} bytes a block the card's run == the plain versions' "
+          f"(rows, reports, {len(card[3])} files)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 16: LM serving
+# ---------------------------------------------------------------------------
+
+
+def phase_lm_serve(dev, seed: int) -> None:
+    """Phase 16: qwen3-1.7b at full width and depth, random weights from the
+    seed, served through ``launch.serve.generate`` in bfloat16; then prefill
+    plus decode against one longer prefill, and a 2-layer full-width copy in
+    float32 on the card against the host."""
+    cfg = get_config(LM_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab) == (28, 2048, 151936),
+          f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = lm.init(seed, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in lm._leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev,
+                            dtype=torch.int32)
+    print(f"LM serving: {LM_ARCH}, {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {n_params} parameters ({cfg.param_dtype}, made on the card in "
+          f"{init_s:.3f} s), compute {cfg.compute_dtype}; batch {LM_BATCH}, prompts of "
+          f"{LM_PROMPT} tokens (q_chunk {cfg.q_chunk}), {LM_NEW} greedy new tokens "
+          f"({smi('name,power.limit')})")
+    out, stats = serve.generate(cfg, params, prompts, LM_NEW)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = kernel.launch_counts()
+    check(out.shape == (LM_BATCH, LM_PROMPT + LM_NEW), f"generated {out.shape}")
+    check(np.array_equal(out[:, :LM_PROMPT], prompts.cpu().numpy())
+          and out.min() >= 0 and out.max() < cfg.vocab, "generated tokens")
+    check(counts == dict.fromkeys(counts, 0), f"LM serving launched GF kernels: {counts}")
+    print(f"generate: prefill {stats['prefill_s'] * 1e3:.1f} ms wall ({LM_BATCH * LM_PROMPT} "
+          f"tokens, {LM_BATCH * LM_PROMPT / stats['prefill_s']:.1f} tokens/s), decode "
+          f"{stats['decode_s'] * 1e3:.1f} ms for {LM_NEW - 1} steps "
+          f"({stats['decode_tok_per_s']:.1f} tokens/s, "
+          f"{stats['decode_s'] / (LM_NEW - 1) * 1e3:.2f} ms a step), peak "
+          f"{peak / 2**30:.3f} GiB above what was allocated before (params included); "
+          f"GF kernel launches {counts}")
+
+    # prefill then decode == one prefill over the longer prompt, in float32
+    # (TF32 off) at the reference's rtol = atol, and in the served bfloat16
+    seq = torch.from_numpy(out).to(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            cast = lm.cast_params(params, c)
+            _, cache = lm.prefill(cast, c, seq[:, :LM_PROMPT])
+            cache = lm.extend_cache(cache, LM_PROMPT + LM_CHECK_STEPS)
+            rows = []
+            for i in range(LM_CHECK_STEPS):
+                pos = LM_PROMPT + i
+                dec, cache = lm.decode_step(cast, c, cache, seq[:, pos:pos + 1], pos)
+                want, _ = lm.prefill(cast, c, seq[:, :pos + 1])
+                check(bool(torch.isfinite(dec).all()), f"{dtype} decode logits finite at {pos}")
+                err, scale = (dec - want).abs().max().item(), want.abs().max().item()
+                outside = ((dec - want).abs() > LM_TOL * (1 + want.abs())).float().mean().item()
+                if dtype == "float32":
+                    check(torch.allclose(dec, want, rtol=LM_TOL, atol=LM_TOL),
+                          f"float32 decode at {pos} vs one prefill: max |diff| {err}")
+                else:
+                    check(err <= LM_TOL * scale, f"bfloat16 decode at {pos} vs one prefill: "
+                          f"max |diff| {err} over the logits' scale {scale}")
+                rows.append((pos, round(err, 6), round(scale, 4), round(outside, 4),
+                             bool(torch.equal(dec.argmax(-1), want.argmax(-1)))))
+            print(f"consistency ({dtype}): {LM_CHECK_STEPS} decode steps after a {LM_PROMPT}-"
+                  f"token prefill against one prefill over the longer prompt; (position, max "
+                  f"|diff|, max |logit|, share outside rtol = atol = {LM_TOL}, same argmax): "
+                  f"{rows}")
+            del cast, cache
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del params, seq
+    torch.cuda.empty_cache()
+
+    # a 2-layer full-width copy in float32: the card (TF32 off) against the host
+    small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, compute_dtype="float32")
+    on_card = lm.init(seed, small, device=dev)
+    on_host = lm._map(lambda t: t.cpu(), on_card)
+    toks = torch.randint(0, cfg.vocab, (LM_CPU_BATCH, LM_CPU_PROMPT), generator=gen,
+                         device=dev, dtype=torch.int32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for where, params_ in (("card", on_card), ("host", on_host)):
+            t = toks.to(params_["embed"].device)
+            logits, cache = lm.prefill(params_, small, t)
+            cache = lm.extend_cache(cache, LM_CPU_PROMPT + LM_CPU_NEW)
+            steps_ = [logits.cpu()]
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            for i in range(LM_CPU_NEW - 1):
+                logits, cache = lm.decode_step(params_, small, cache, nxt, LM_CPU_PROMPT + i)
+                steps_.append(logits.cpu())
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            gen_out, _ = serve.generate(small, params_, t, LM_CPU_NEW)
+            runs[where] = (torch.stack(steps_), gen_out)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (card_logits, card_tokens), (host_logits, host_tokens) = runs["card"], runs["host"]
+    err = (card_logits - host_logits).abs().max().item()
+    check(np.array_equal(card_tokens, host_tokens),
+          f"greedy tokens card vs host: {card_tokens[:, LM_CPU_PROMPT:]} / "
+          f"{host_tokens[:, LM_CPU_PROMPT:]}")
+    check(torch.allclose(card_logits, host_logits, rtol=LM_CPU_TOL, atol=LM_CPU_TOL),
+          f"float32 logits card vs host: max |diff| {err}")
+    print(f"card vs host: {LM_CPU_LAYERS}-layer full-width copy in float32 (TF32 off), batch "
+          f"{LM_CPU_BATCH}, {LM_CPU_PROMPT}-token prompt, {LM_CPU_NEW} greedy tokens: same "
+          f"tokens, logits (prefill and {LM_CPU_NEW - 1} decode steps) within rtol = atol = "
+          f"{LM_CPU_TOL}, max |diff| {err:.3g}")
+    del on_card, on_host
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1931,7 +2230,7 @@ def main() -> int:
 
 
 def run_phases(dev, seed: int, pool) -> int:
-    """Phases 1-14, then the kernels line and the device line."""
+    """Phases 1-16, then the kernels line and the device line."""
     t_start = time.perf_counter()
 
     # -- phase 1: build ------------------------------------------------------
@@ -2131,6 +2430,13 @@ def run_phases(dev, seed: int, pool) -> int:
     check(all(c > 0 for c in slice_launches.values()),
           f"every kernel launched on phases 13-14's paths: {slice_launches}")
     print(f"launches on phases 13-14's paths: {slice_launches}")
+    torch.cuda.empty_cache()
+
+    # -- phase 15: the live cluster ---------------------------------------------
+    live_launches = phase_live(dev, seed)
+
+    # -- phase 16: qwen3-1.7b served at full width and depth ---------------------
+    phase_lm_serve(dev, seed)
 
     rows = []
     for name, w in work.items():
@@ -2144,7 +2450,8 @@ def run_phases(dev, seed: int, pool) -> int:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
             "library_why": LIBRARY_WHY[name],
-            "slice_launches": slice_launches.get(name),
+            "slice_launches": {"phases 13-14": slice_launches.get(name),
+                               "phase 15": live_launches.get(name)},
             "bytes": w["bytes"], "ops": w["ops"], "int8_ops": w["int8_ops"],
         })
         report_work(name, w, "all paths")

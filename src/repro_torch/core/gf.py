@@ -95,10 +95,31 @@ def gf_matmul_np(A: np.ndarray, B: np.ndarray, l: int) -> np.ndarray:
     A = np.asarray(A)
     B = np.asarray(B)
     n, k = A.shape
+    if B[0].size >= TABLE_MATMUL_MIN_COLS[l]:
+        return _gf_matmul_tables(A, B, l)
     out = np.zeros((n,) + B.shape[1:], dtype=WORD_DTYPE[l])
     for j in range(k):
         out ^= gf_mul_np(A[:, j].reshape((n,) + (1,) * (B.ndim - 1)), B[j][None], l)
     return out
+
+
+#: columns of B from which ``gf_matmul_np`` builds a product table per column
+#: of A (2^l rows each) rather than multiplying through int64 log/exp arrays
+#: of B's size per column: past it building the tables costs less than the
+#: gathers they save.
+TABLE_MATMUL_MIN_COLS = {8: 1 << 10, 16: 1 << 18}
+
+
+def _gf_matmul_tables(A: np.ndarray, B: np.ndarray, l: int) -> np.ndarray:
+    """``gf_matmul_np`` through tables: T_j[x] = A[:, j] * x for every field
+    element x, gathered at B[j] and xor-accumulated in (cols, n) order."""
+    n, k = A.shape
+    field = np.arange(1 << l, dtype=np.int64)[:, None]
+    flat = B.reshape(k, -1)
+    acc = np.zeros((flat.shape[1], n), dtype=WORD_DTYPE[l])
+    for j in range(k):
+        acc ^= gf_mul_np(field, A[:, j][None, :], l)[flat[j]]
+    return np.ascontiguousarray(acc.T).reshape((n,) + B.shape[1:])
 
 
 def gf_rank_np(M: np.ndarray, l: int) -> int:

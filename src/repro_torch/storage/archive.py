@@ -62,7 +62,7 @@ from repro_torch.kernels.gf_encode import ops
 from repro_torch.storage import chain as chain_lib
 from repro_torch.storage import multi as multi_lib
 from repro_torch.storage import repair as repair_lib
-from repro_torch.storage.object_store import NodeStore, digest
+from repro_torch.storage.object_store import NodeStore, digest, digests
 
 MANIFEST = "manifests/{step:08d}.json"
 HOT = "hot/{step:08d}/block_{j:02d}.bin"
@@ -156,7 +156,7 @@ def hot_save(store: NodeStore, step: int, blocks: np.ndarray,
     manifest = {
         "step": step, "tier": "hot", "n": acfg.n, "k": acfg.k, "l": acfg.l,
         "seed": acfg.seed, "family": acfg.family, "block_bytes": int(B),
-        "digests": [digest(b) for b in blobs],
+        "digests": digests(blobs),
         "placement": [list(h) for h in place],
     }
     _put_manifest(store, step, manifest)
@@ -490,7 +490,7 @@ def _archive_group(store: NodeStore, grp: list[int], acfg: ArchiveConfig,
         manifest = {
             **manifest, "tier": "archive", "family": acfg.family,
             "perm": [int(p) for p in perm],
-            "coded_digests": [digest(b) for b in coded_blobs],
+            "coded_digests": digests(coded_blobs),
             "orig_digests": manifest["digests"],
             "batched_with": [int(s) for s in grp],
         }
@@ -642,15 +642,13 @@ def archive_classical(store: NodeStore, step: int, acfg: ArchiveConfig) -> dict:
 def _alive_coded(store: NodeStore, step: int, manifest: dict):
     """[(codeword_row, bytes)] for every surviving coded block."""
     perm = manifest["perm"]
-    out = []
-    for pos in range(manifest["n"]):
-        node = perm[pos]
-        rel = ARC.format(step=step, i=pos)
-        if store.has(node, rel):
-            raw = store.get(node, rel)
-            if digest(raw) == manifest["coded_digests"][pos]:
-                out.append((pos, raw))
-    return out
+    rels = {pos: ARC.format(step=step, i=pos) for pos in range(manifest["n"])}
+    present = [(pos, store.get(perm[pos], rel)) for pos, rel in rels.items()
+               if store.has(perm[pos], rel)]
+    got = digests([raw for _, raw in present])
+    return [(pos, raw) for (pos, raw), d in zip(present, got)
+            if d == manifest["coded_digests"][pos]]
+
 
 def restore_blocks(store: NodeStore, step: int, acfg: ArchiveConfig,
                    heal: bool = False, device=None) -> np.ndarray:
@@ -717,10 +715,11 @@ def restore_blocks_ex(store: NodeStore, step: int, acfg: ArchiveConfig,
         data_w = code.decode_np(
             ids, shards_w, block_words=manifest["block_bytes"] // (l // 8))
     blocks = _u8(data_w)
+    got = digests([blocks[j].tobytes() for j in range(k)])
     for j in range(k):
         # a real exception (asserts vanish under python -O): a decode that
         # does not match the archived digest must never be returned
-        if digest(blocks[j].tobytes()) != manifest["orig_digests"][j]:
+        if got[j] != manifest["orig_digests"][j]:
             raise ValueError(
                 f"step {step}: decoded block {j} does not match the archived "
                 f"digest — corrupt shard set or code mismatch")

@@ -114,3 +114,20 @@ def test_matvec_packed_matches_jax_and_field(l, n, k):
     np.testing.assert_array_equal(as_u32(got), as_u32(want))
     np.testing.assert_array_equal(gf.unpack_u32(got, l).numpy(),
                                   code.encode_np(words))
+
+
+@pytest.mark.parametrize("l,shape", [(8, (5, 1 << 10)), (8, (3, 64, 40)), (16, (4, 1 << 18))])
+def test_host_matmul_table_route_matches_jax(l, shape):
+    """Past ``TABLE_MATMUL_MIN_COLS`` the host product runs through product
+    tables: the same words as the JAX package's log/exp product."""
+    rng = np.random.default_rng(l + len(shape))
+    A = rand_words(rng, (7, shape[0]), l)
+    A[0, 0] = 0                                   # zero coefficients and words too
+    B = rand_words(rng, shape, l)
+    B[:, :3] = 0
+    assert B[0].size >= gf.TABLE_MATMUL_MIN_COLS[l]
+    got = gf.gf_matmul_np(A, B, l)
+    assert got.dtype == jgf.WORD_DTYPE[l] and got.shape == (7,) + shape[1:]
+    np.testing.assert_array_equal(got, jgf.gf_matmul_np(A, B, l))
+    small = gf.gf_matmul_np(A, B.reshape(shape[0], -1)[:, :100], l)   # the log/exp route
+    np.testing.assert_array_equal(small, got.reshape(7, -1)[:, :100])
