@@ -105,9 +105,9 @@ last line:
    at stagger 1 against one ``archive_step`` / ``repair`` each. Each wall is
    printed with the share the kernels take (CUDA events around each
    launch or graph replay). The store is removed at the end.
-13. Checkpointing a real train state: whisper-base's (``WHISPER_BASE_PARAMS``:
-   the JAX package's model and AdamW state at full depth, 83 leaves, a
-   1.227 GiB blob), made on the card from the seed, through a
+13. Checkpointing a real train state: whisper-base's (``whisper_state``:
+   the port's model and AdamW state at full depth, 83 leaves, a 1.227 GiB
+   blob), made on the card from the seed, through a
    ``CheckpointManager`` on 16-node (16,11) GF(2^16) stores in a temporary
    directory: ``save_sharded`` (blocks against ``tree_to_bytes``, the
    codeword against the plain matvec on the card, ``num_ticks`` chain_tick
@@ -161,12 +161,36 @@ last line:
    the logits' largest magnitude; a 2-layer full-width copy in float32
    (TF32 off) on the card against the host: the same greedy tokens, logits
    within 1e-3.
+17. The other three families served as phase 16 serves qwen3-1.7b, at full
+   width and depth with random weights from the seed: rwkv6-3b (ssm: 32
+   layers, d_model 2560, vocab 65536) and hymba-1.5b (hybrid: 32 layers,
+   d_model 1600, sliding window 1024 with global layers 0, 15 and 31, so
+   the 2048-token prefill takes the banded path and decode passes the
+   window) at batch 4, 2048-token prompts and 64 new tokens; whisper-base
+   (encdec: 6 + 6 layers, d_model 512) at batch 4 with (4, 1500, 512)
+   encoder frames, a 384-token decoder prompt and 64 new tokens (inside
+   Whisper's 448-token decoder context). Each with phase 16's checks; the
+   2-layer copy of whisper-base has 2 encoder and 2 decoder layers.
+18. Training: (a) qwen3-1.7b at full width and depth through
+   ``launch.train.run_training`` with the JAX launcher's defaults (global
+   batch 8, seq 128, lr 3e-4, the config's remat) for 6 steps on
+   ``SyntheticSource``: the first and median step walls, tokens/s and peak
+   device bytes; finite losses, every parameter leaf moved, no GF kernel
+   launched. (b) whisper-base at full width and depth through a
+   device-direct ``CheckpointManager``: an unbroken 8-step run saving every
+   4 steps, a 4-step run on a second store, ``restore_sharded`` of its
+   step 4 bit for bit against the state it saved, and a second
+   ``run_training`` over that store that resumes at step 4
+   (``restore_latest``, decoded on the card): its losses within 1e-3
+   (relative) of the unbroken run's (CUDA's embedding backward adds with
+   atomics, so the continued run is not bitwise). The counters over (b)'s
+   saves and restores must show both tick kernels.
 
 Then one JSON line with every kernel's numbers over all of the run's
 launches (the staggered launches of phase 8 in rows of their own;
 ``slice_launches``: each kernel's launches over phases 13-14's counted
-runs, every one of which must be above 0, and over phase 15's soak), and
-the device line.
+runs, every one of which must be above 0, over phase 15's soak and over
+phase 18's saves and restores), and the device line.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -200,8 +224,11 @@ from repro_torch.core import (autotune, churn, classical, codes, fault_tolerance
 from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.admission import AdmissionConfig, AdmissionController  # noqa: E402
+from repro_torch.data import pipeline as data_pipeline  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.storage import (archive, atomic, chain, lifecycle, multi,  # noqa: E402
                                  object_store, repair, serving, workload)
 
@@ -237,27 +264,12 @@ ARCHIVE_STRIPE_BYTES = 4 << 20           # phase 12: 2^21 words, phase 11's stri
 ARCHIVE_OBJECTS = 8                      # phase 12: archive_many / repair_many batch
 ARCHIVE_BLOCK_BYTES = 6 << 20            # phase 12: each of the batch's 11 blocks
 READ_RANGE_BYTES = 1 << 20               # phase 12: read_range_ex across a block boundary
-# Phase 13: whisper-base's train state as the JAX package's
-# benchmarks/fig_checkpoint.py builds it (model.init and adamw.init_opt of
-# configs/whisper_base.py, at full depth): each parameter's path and shape,
-# all float32; the AdamW m and v mirror the parameters, beside an int32
-# count and an np.int64 step: 83 leaves, a 1,316,999,375-byte blob.
-WHISPER_BASE_PARAMS = (
-    ("dec_layers/attn/wk", (6, 512, 512)), ("dec_layers/attn/wo", (6, 512, 512)),
-    ("dec_layers/attn/wq", (6, 512, 512)), ("dec_layers/attn/wv", (6, 512, 512)),
-    ("dec_layers/mlp/wg", (6, 512, 2048)), ("dec_layers/mlp/wi", (6, 512, 2048)),
-    ("dec_layers/mlp/wo", (6, 2048, 512)), ("dec_layers/norm1/scale", (6, 512)),
-    ("dec_layers/norm2/scale", (6, 512)), ("dec_layers/norm_x/scale", (6, 512)),
-    ("dec_layers/xattn/wk", (6, 512, 512)), ("dec_layers/xattn/wo", (6, 512, 512)),
-    ("dec_layers/xattn/wq", (6, 512, 512)), ("dec_layers/xattn/wv", (6, 512, 512)),
-    ("embed", (51865, 512)),
-    ("enc_layers/attn/wk", (6, 512, 512)), ("enc_layers/attn/wo", (6, 512, 512)),
-    ("enc_layers/attn/wq", (6, 512, 512)), ("enc_layers/attn/wv", (6, 512, 512)),
-    ("enc_layers/mlp/wg", (6, 512, 2048)), ("enc_layers/mlp/wi", (6, 512, 2048)),
-    ("enc_layers/mlp/wo", (6, 2048, 512)), ("enc_layers/norm1/scale", (6, 512)),
-    ("enc_layers/norm2/scale", (6, 512)), ("enc_norm/scale", (512,)),
-    ("final_norm/scale", (512,)), ("lm_head", (512, 51865)),
-)
+# Phase 13: whisper-base's train state as the port builds it (model.init on
+# the meta device and adamw.init_opt of configs/whisper_base.py, at full
+# depth; the JAX package's benchmarks/fig_checkpoint.py builds the same tree):
+# float32 parameters, AdamW's m and v mirroring them, an int32 count and an
+# np.int64 step: 83 leaves, a 1,316,999,375-byte blob.
+WHISPER_ARCH = "whisper-base"
 WHISPER_BLOB_BYTES = 1316999375
 CKPT_LOST = [5, 6, 7, 8, 14]             # phase 13: the nodes lost before restore_sharded
 CKPT_STREAM_BUDGET = 256 << 20           # phase 13: footprint_bytes of the streamed save
@@ -281,8 +293,35 @@ LM_CHECK_STEPS = 4                       # phase 16: decode steps held against o
 # 5-6% of the logits fall outside the elementwise bound while float32 agrees
 # to 2e-5).
 LM_TOL = 2e-2
+# Phase 17's bfloat16 check: the two paths compute the same function (float32
+# holds them within LM_TOL), but in bfloat16 they round differently (a
+# (B, 1, D) product and a (B, S, D) one accumulate in other orders; Hymba's
+# conv is one contraction in decode and a chain of adds in prefill), and over
+# 32 layers the logits part by more than any fixed share of their scale: on
+# an H100 rwkv6-3b's by 2.2-4.5%, hymba-1.5b's by 10%, and the JAX package's
+# own hymba (8 layers, d_model 256, on the CPU) by 3-8%. So each bfloat16 path
+# is held to the float32 answer instead: the decode's RMS distance from the
+# float32 prefill's logits within twice the bfloat16 prefill's.
+LM_BF16_RMS_FACTOR = 2.0
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_NEW = 2, 2, 32, 8
 LM_CPU_TOL = 1e-3                        # phase 16: float32 card (TF32 off) vs host, rtol = atol
+# Phase 17: the other three families at full width and depth, each checked
+# for the published (n_layers, d_model, vocab) and served like phase 16;
+# whisper-base's decoder prompt and new tokens fit inside Whisper's 448-token
+# decoder context (max_target_positions of the public openai/whisper-base).
+FAMILY_ARCHS = {"rwkv6-3b": ((32, 2560, 65536), LM_PROMPT),
+                "hymba-1.5b": ((32, 1600, 32001), LM_PROMPT),
+                "whisper-base": ((6, 512, 51865), 384)}
+# Phase 18: training with the JAX launcher's defaults (launch/train.py's
+# flags: global batch 8, seq 128, lr 3e-4, warmup max(steps // 20, 5)).
+TRAIN_ARCH, TRAIN_STEPS = "qwen3-1.7b", 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 128, 3e-4
+CKPT_TRAIN_STEPS, CKPT_SAVE_EVERY = 8, 4     # phase 18 (b): saves at 4 and 8, resume at 4
+# Phase 18 (b)'s bound on the resumed losses against the unbroken run's,
+# relative: CUDA's embedding backward adds the rows' gradients with atomics,
+# so two runs of the same steps are not bitwise equal (the restored state
+# itself is held bit for bit).
+TRAIN_RESUME_TOL = 1e-3
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -307,23 +346,20 @@ SOURCE = {"chain_tick": CSRC + "gf_tick.cu", "repair_tick": CSRC + "gf_tick.cu",
 
 
 def whisper_state(fill, count: int = 1, step: int = 1) -> dict:
-    """Phase 13's train state: ``fill(shape)`` makes each float32 leaf of
-    the parameters and of AdamW's m and v (``WHISPER_BASE_PARAMS``), beside
-    an int32 ``count`` tensor and an ``np.int64`` step. ``fill`` on the
-    ``meta`` device gives the layout without data."""
-    def params() -> dict:
-        out: dict = {}
-        for path, shape in WHISPER_BASE_PARAMS:
-            *head, leaf = path.split("/")
-            node = out
-            for key in head:
-                node = node.setdefault(key, {})
-            node[leaf] = fill(shape)
-        return out
-    template = fill((1,))
-    return {"opt": {"count": torch.full((), count, dtype=torch.int32, device=template.device),
-                    "m": params(), "v": params()},
-            "params": params(), "step": np.int64(step)}
+    """Phase 13's train state: whisper-base's parameters and AdamW state in
+    the tree of ``model.init`` and ``adamw.init_opt`` (made on the meta
+    device); ``fill(shape)`` makes each float32 leaf of the parameters, m and
+    v, beside an int32 ``count`` tensor and an ``np.int64`` step. ``fill`` on
+    the ``meta`` device gives the layout without data."""
+    cfg = get_config(WHISPER_ARCH)
+    params = lm.init(0, cfg, device="meta")
+    opt = adamw.init_opt(params, adamw.OptConfig(state_dtype=cfg.param_dtype))
+    made = lm._map(lambda t: fill(tuple(t.shape)),
+                   {"params": params, "m": opt["m"], "v": opt["v"]})
+    dev = made["params"]["embed"].device
+    return {"opt": {"count": torch.full((), count, dtype=torch.int32, device=dev),
+                    "m": made["m"], "v": made["v"]},
+            "params": made["params"], "step": np.int64(step)}
 
 
 def smi(query: str) -> str:
@@ -2092,14 +2128,17 @@ def phase_live(dev, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_lm_serve(dev, seed: int) -> None:
-    """Phase 16: qwen3-1.7b at full width and depth, random weights from the
-    seed, served through ``launch.serve.generate`` in bfloat16; then prefill
-    plus decode against one longer prefill, and a 2-layer full-width copy in
-    float32 on the card against the host."""
-    cfg = get_config(LM_ARCH)
-    check((cfg.n_layers, cfg.d_model, cfg.vocab) == (28, 2048, 151936),
-          f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}")
+def phase_lm_serve(dev, seed: int, arch: str = LM_ARCH, dims=(28, 2048, 151936),
+                   prompt: int = LM_PROMPT) -> None:
+    """Phases 16-17: ``arch`` at full width and depth, random weights from
+    the seed, served through ``launch.serve.generate`` in bfloat16 (the
+    encoder-decoder with (LM_BATCH, enc_ctx, d_model) frames from the seed);
+    then prefill plus decode against one longer prefill, and a 2-layer
+    full-width copy (2 encoder + 2 decoder layers) in float32 on the card
+    against the host."""
+    cfg = get_config(arch)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab) == dims,
+          f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2110,23 +2149,28 @@ def phase_lm_serve(dev, seed: int) -> None:
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in lm._leaves(params))
     gen = torch.Generator(device=dev).manual_seed(seed + 16)
-    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev,
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, prompt), generator=gen, device=dev,
                             dtype=torch.int32)
-    print(f"LM serving: {LM_ARCH}, {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab}, {n_params} parameters ({cfg.param_dtype}, made on the card in "
-          f"{init_s:.3f} s), compute {cfg.compute_dtype}; batch {LM_BATCH}, prompts of "
-          f"{LM_PROMPT} tokens (q_chunk {cfg.q_chunk}), {LM_NEW} greedy new tokens "
-          f"({smi('name,power.limit')})")
-    out, stats = serve.generate(cfg, params, prompts, LM_NEW)
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.randn((LM_BATCH, cfg.enc_ctx, cfg.d_model), generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+    print(f"LM serving: {arch} ({cfg.family}), {cfg.n_layers} layers"
+          f"{f' + {cfg.enc_layers} encoder layers over {cfg.enc_ctx} frames' if enc is not None else ''}"
+          f", d_model {cfg.d_model}, vocab {cfg.vocab}, {n_params} parameters "
+          f"({cfg.param_dtype}, made on the card in {init_s:.3f} s), compute "
+          f"{cfg.compute_dtype}; batch {LM_BATCH}, prompts of {prompt} tokens (q_chunk "
+          f"{cfg.q_chunk}), {LM_NEW} greedy new tokens ({smi('name,power.limit')})")
+    out, stats = serve.generate(cfg, params, prompts, LM_NEW, enc_frames=enc)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     counts = kernel.launch_counts()
-    check(out.shape == (LM_BATCH, LM_PROMPT + LM_NEW), f"generated {out.shape}")
-    check(np.array_equal(out[:, :LM_PROMPT], prompts.cpu().numpy())
+    check(out.shape == (LM_BATCH, prompt + LM_NEW), f"generated {out.shape}")
+    check(np.array_equal(out[:, :prompt], prompts.cpu().numpy())
           and out.min() >= 0 and out.max() < cfg.vocab, "generated tokens")
     check(counts == dict.fromkeys(counts, 0), f"LM serving launched GF kernels: {counts}")
-    print(f"generate: prefill {stats['prefill_s'] * 1e3:.1f} ms wall ({LM_BATCH * LM_PROMPT} "
-          f"tokens, {LM_BATCH * LM_PROMPT / stats['prefill_s']:.1f} tokens/s), decode "
+    print(f"generate: prefill {stats['prefill_s'] * 1e3:.1f} ms wall ({LM_BATCH * prompt} "
+          f"tokens, {LM_BATCH * prompt / stats['prefill_s']:.1f} tokens/s), decode "
           f"{stats['decode_s'] * 1e3:.1f} ms for {LM_NEW - 1} steps "
           f"({stats['decode_tok_per_s']:.1f} tokens/s, "
           f"{stats['decode_s'] / (LM_NEW - 1) * 1e3:.2f} ms a step), peak "
@@ -2139,31 +2183,46 @@ def phase_lm_serve(dev, seed: int) -> None:
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
+        exact = {}                            # float32 prefill logits by position
         for dtype in ("float32", "bfloat16"):
             c = dataclasses.replace(cfg, compute_dtype=dtype)
             cast = lm.cast_params(params, c)
-            _, cache = lm.prefill(cast, c, seq[:, :LM_PROMPT])
-            cache = lm.extend_cache(cache, LM_PROMPT + LM_CHECK_STEPS)
+            _, cache = lm.prefill(cast, c, seq[:, :prompt], enc_frames=enc)
+            cache = lm.extend_cache(cache, prompt + LM_CHECK_STEPS)
             rows = []
             for i in range(LM_CHECK_STEPS):
-                pos = LM_PROMPT + i
+                pos = prompt + i
                 dec, cache = lm.decode_step(cast, c, cache, seq[:, pos:pos + 1], pos)
-                want, _ = lm.prefill(cast, c, seq[:, :pos + 1])
+                want, _ = lm.prefill(cast, c, seq[:, :pos + 1], enc_frames=enc)
                 check(bool(torch.isfinite(dec).all()), f"{dtype} decode logits finite at {pos}")
                 err, scale = (dec - want).abs().max().item(), want.abs().max().item()
                 outside = ((dec - want).abs() > LM_TOL * (1 + want.abs())).float().mean().item()
+                row = (pos, round(err, 6), round(scale, 4), round(outside, 4),
+                       bool(torch.equal(dec.argmax(-1), want.argmax(-1))))
                 if dtype == "float32":
                     check(torch.allclose(dec, want, rtol=LM_TOL, atol=LM_TOL),
                           f"float32 decode at {pos} vs one prefill: max |diff| {err}")
-                else:
+                    exact[pos] = want
+                elif arch == LM_ARCH:
                     check(err <= LM_TOL * scale, f"bfloat16 decode at {pos} vs one prefill: "
                           f"max |diff| {err} over the logits' scale {scale}")
-                rows.append((pos, round(err, 6), round(scale, 4), round(outside, 4),
-                             bool(torch.equal(dec.argmax(-1), want.argmax(-1)))))
-            print(f"consistency ({dtype}): {LM_CHECK_STEPS} decode steps after a {LM_PROMPT}-"
+                else:
+                    # each bfloat16 path against the float32 answer
+                    d_dec, d_pf = (torch.sqrt(torch.mean((x - exact[pos]) ** 2)).item()
+                                   for x in (dec, want))
+                    check(d_dec <= LM_BF16_RMS_FACTOR * d_pf,
+                          f"bfloat16 decode at {pos}: RMS {d_dec} from the float32 logits, the "
+                          f"bfloat16 prefill's {d_pf}")
+                    row += (round(d_dec, 5), round(d_pf, 5))
+                rows.append(row)
+            bound = (f"rtol = atol = {LM_TOL}" if dtype == "float32" else
+                     f"max |diff| <= {LM_TOL} x max |logit|" if arch == LM_ARCH else
+                     f"RMS from the float32 logits, decode <= {LM_BF16_RMS_FACTOR} x prefill")
+            print(f"consistency ({dtype}): {LM_CHECK_STEPS} decode steps after a {prompt}-"
                   f"token prefill against one prefill over the longer prompt; (position, max "
-                  f"|diff|, max |logit|, share outside rtol = atol = {LM_TOL}, same argmax): "
-                  f"{rows}")
+                  f"|diff|, max |logit|, share outside rtol = atol = {LM_TOL}, same argmax"
+                  f"{', RMS of decode and of prefill from float32' if len(rows[0]) > 5 else ''}"
+                  f"; bound {bound}): {rows}")
             del cast, cache
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -2171,17 +2230,20 @@ def phase_lm_serve(dev, seed: int) -> None:
     torch.cuda.empty_cache()
 
     # a 2-layer full-width copy in float32: the card (TF32 off) against the host
-    small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, compute_dtype="float32")
+    small = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, compute_dtype="float32",
+                                enc_layers=LM_CPU_LAYERS if enc is not None else 0)
     on_card = lm.init(seed, small, device=dev)
     on_host = lm._map(lambda t: t.cpu(), on_card)
     toks = torch.randint(0, cfg.vocab, (LM_CPU_BATCH, LM_CPU_PROMPT), generator=gen,
                          device=dev, dtype=torch.int32)
+    small_enc = None if enc is None else enc[:LM_CPU_BATCH].float()
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         runs = {}
         for where, params_ in (("card", on_card), ("host", on_host)):
             t = toks.to(params_["embed"].device)
-            logits, cache = lm.prefill(params_, small, t)
+            e = None if small_enc is None else small_enc.to(t.device)
+            logits, cache = lm.prefill(params_, small, t, enc_frames=e)
             cache = lm.extend_cache(cache, LM_CPU_PROMPT + LM_CPU_NEW)
             steps_ = [logits.cpu()]
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
@@ -2189,7 +2251,7 @@ def phase_lm_serve(dev, seed: int) -> None:
                 logits, cache = lm.decode_step(params_, small, cache, nxt, LM_CPU_PROMPT + i)
                 steps_.append(logits.cpu())
                 nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-            gen_out, _ = serve.generate(small, params_, t, LM_CPU_NEW)
+            gen_out, _ = serve.generate(small, params_, t, LM_CPU_NEW, enc_frames=e)
             runs[where] = (torch.stack(steps_), gen_out)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -2204,8 +2266,131 @@ def phase_lm_serve(dev, seed: int) -> None:
           f"{LM_CPU_BATCH}, {LM_CPU_PROMPT}-token prompt, {LM_CPU_NEW} greedy tokens: same "
           f"tokens, logits (prefill and {LM_CPU_NEW - 1} decode steps) within rtol = atol = "
           f"{LM_CPU_TOL}, max |diff| {err:.3g}")
-    del on_card, on_host
+    del on_card, on_host, enc, small_enc
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 18: training, and the train state through the coded checkpoints
+# ---------------------------------------------------------------------------
+
+
+def train_args(cfg, steps: int, seed: int):
+    """The JAX launcher's defaults for ``steps`` steps on ``SyntheticSource``."""
+    ocfg = adamw.OptConfig(peak_lr=TRAIN_LR, warmup_steps=max(steps // 20, 5),
+                           total_steps=steps, state_dtype=cfg.param_dtype)
+    dcfg = data_pipeline.DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                    seed=seed)
+    return ocfg, dcfg
+
+
+def phase_train(dev, seed: int) -> dict:
+    """Phase 18: (a) qwen3-1.7b trained at full width and depth through
+    ``launch.train.run_training`` with no checkpoint; (b) whisper-base trained
+    through a device-direct ``CheckpointManager``, resumed from its step-4
+    save. Returns the kernels' launches over (b)'s saves and restores."""
+    # (a) qwen3-1.7b
+    cfg = get_config(TRAIN_ARCH)
+    ocfg, dcfg = train_args(cfg, TRAIN_STEPS, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel.reset_launch_counts()
+    lines: list[str] = []
+    t0 = time.perf_counter()
+    out = train_launch.run_training(cfg, ocfg, dcfg, TRAIN_STEPS, log_every=1, log=lines.append,
+                                    device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = kernel.launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    walls = out["step_s"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    check(counts == dict.fromkeys(counts, 0), f"training launched GF kernels: {counts}")
+    n_params = sum(t.numel() for t in lm._leaves(out["params"]))
+    del out["opt"]
+    torch.cuda.empty_cache()
+    start = lm.init(dcfg.seed, cfg, device=dev)       # run_training's initial parameters
+    moved = [float((a.detach() - b).abs().max()) for a, b in adamw._zip(out["params"], start)]
+    check(all(m > 0 for m in moved), f"{sum(m > 0 for m in moved)} of {len(moved)} leaves moved")
+    del out, start
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(walls[1:])
+    print(f"training: {TRAIN_ARCH} at full width and depth ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} float32 parameters, remat {cfg.remat}), global batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ} on SyntheticSource, AdamW lr {TRAIN_LR}, "
+          f"{TRAIN_STEPS} steps in {wall:.3f} s (init included): first step "
+          f"{walls[0] * 1e3:.1f} ms, median of the rest {med * 1e3:.1f} ms ({tokens / med:.1f} "
+          f"tokens/s), peak {peak / 2**30:.3f} GiB above what was allocated before; losses "
+          f"{[round(x, 4) for x in losses]}; every one of {len(moved)} leaves moved; GF "
+          f"kernel launches {counts} ({smi('name,power.limit')})")
+
+    # (b) whisper-base through the device-direct checkpoint manager
+    wcfg = get_config(WHISPER_ARCH)
+    wocfg, wdcfg = train_args(wcfg, CKPT_TRAIN_STEPS, seed)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train-")
+
+    def manager_at(name: str) -> manager.CheckpointManager:
+        return manager.CheckpointManager(manager.CheckpointConfig(
+            root=os.path.join(root, name), n=N, k=K, l=L, seed=seed, device_direct=True),
+            device=dev)
+
+    def train(n_steps: int, mgr, log):
+        t = time.perf_counter()
+        o = train_launch.run_training(wcfg, wocfg, wdcfg, n_steps, ckpt=mgr,
+                                      save_every=CKPT_SAVE_EVERY, log_every=1, log=log,
+                                      device=dev)
+        return o, time.perf_counter() - t
+
+    try:
+        kernel.reset_launch_counts()
+        full, full_s = train(CKPT_TRAIN_STEPS, manager_at("unbroken"), lambda *_: None)
+        del full["params"], full["opt"]
+        crash = manager_at("resumed")
+        first, first_s = train(CKPT_SAVE_EVERY, crash, lambda *_: None)
+        saved = {"params": first["params"], "opt": first["opt"],
+                 "step": np.int64(CKPT_SAVE_EVERY)}
+        t = time.perf_counter()
+        got = crash.restore_sharded(CKPT_SAVE_EVERY, saved)
+        restore_s = time.perf_counter() - t
+        check(leaves_equal(got, saved), f"restored step {CKPT_SAVE_EVERY} == the saved "
+              f"train state, bit for bit")
+        del got, saved, first
+        lines = []
+        resumed, resumed_s = train(CKPT_TRAIN_STEPS, crash, lines.append)
+        counts = kernel.launch_counts()
+        check(lines[0].startswith(f"resuming from checkpoint step {CKPT_SAVE_EVERY} "),
+              f"the second run resumed: {lines[0]!r}")
+        got_steps = [h["step"] for h in resumed["history"]]
+        check(got_steps == list(range(CKPT_SAVE_EVERY, CKPT_TRAIN_STEPS)),
+              f"resumed steps {got_steps}")
+        want = [h["loss"] for h in full["history"][CKPT_SAVE_EVERY:]]
+        got_l = [h["loss"] for h in resumed["history"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got_l, want))
+        check(all(np.isfinite(got_l)) and rel <= TRAIN_RESUME_TOL,
+              f"resumed losses {got_l} vs unbroken {want}: relative {rel:.3g}")
+        check(crash.steps() == [CKPT_SAVE_EVERY, CKPT_TRAIN_STEPS]
+              and all(crash.tier(s) == "archive" for s in crash.steps()),
+              f"coded steps {crash.steps()}")
+        check(counts["chain_tick"] > 0 and counts["repair_tick"] > 0,
+              f"saves and restores launched the tick kernels: {counts}")
+        del resumed
+        print(f"training through the checkpoint: {WHISPER_ARCH} at full width and depth, "
+              f"global batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (+ {wcfg.enc_ctx} encoder "
+              f"frames), device-direct saves every {CKPT_SAVE_EVERY} steps into ({N},{K}) "
+              f"GF(2^{L}) stores: unbroken {CKPT_TRAIN_STEPS} steps {full_s:.3f} s, "
+              f"{CKPT_SAVE_EVERY} steps then a stop {first_s:.3f} s, restore_sharded of step "
+              f"{CKPT_SAVE_EVERY} {restore_s:.3f} s (bit for bit), the resumed run "
+              f"{resumed_s:.3f} s from step {CKPT_SAVE_EVERY} (restore_latest on the card); "
+              f"losses {CKPT_SAVE_EVERY}-{CKPT_TRAIN_STEPS - 1} {[round(x, 5) for x in got_l]} "
+              f"vs unbroken {[round(x, 5) for x in want]}, largest relative difference "
+              f"{rel:.3g} (bound {TRAIN_RESUME_TOL}: the embedding backward's atomics); GF "
+              f"kernel launches over the saves and restores {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -2230,7 +2415,7 @@ def main() -> int:
 
 
 def run_phases(dev, seed: int, pool) -> int:
-    """Phases 1-16, then the kernels line and the device line."""
+    """Phases 1-18, then the kernels line and the device line."""
     t_start = time.perf_counter()
 
     # -- phase 1: build ------------------------------------------------------
@@ -2438,6 +2623,13 @@ def run_phases(dev, seed: int, pool) -> int:
     # -- phase 16: qwen3-1.7b served at full width and depth ---------------------
     phase_lm_serve(dev, seed)
 
+    # -- phase 17: rwkv6-3b, hymba-1.5b and whisper-base served ------------------
+    for arch, (dims, prompt) in FAMILY_ARCHS.items():
+        phase_lm_serve(dev, seed, arch, dims, prompt)
+
+    # -- phase 18: training, and a resume through the coded checkpoints ----------
+    train_launches = phase_train(dev, seed)
+
     rows = []
     for name, w in work.items():
         bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2451,7 +2643,8 @@ def run_phases(dev, seed: int, pool) -> int:
             "library_ms": None,
             "library_why": LIBRARY_WHY[name],
             "slice_launches": {"phases 13-14": slice_launches.get(name),
-                               "phase 15": live_launches.get(name)},
+                               "phase 15": live_launches.get(name),
+                               "phase 18": train_launches.get(name)},
             "bytes": w["bytes"], "ops": w["ops"], "int8_ops": w["int8_ops"],
         })
         report_work(name, w, "all paths")

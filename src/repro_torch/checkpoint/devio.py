@@ -36,7 +36,7 @@ a budget is serialized on the host and streamed through the card
 (``save_state``'s ``footprint_bytes``).
 
 Not ported yet: ``mesh=`` (the state's devices as the chain's nodes, which
-needs the multi-process chain, ROADMAP Queue 1 item 3).
+needs the ROADMAP's "multi-process chain" item).
 """
 from __future__ import annotations
 
@@ -55,7 +55,8 @@ from repro_torch.storage import object_store as obj
 LANE_BYTES = 64   # whole uint32 packing lanes AND chunk-divisible blocks
 
 _NO_MESH = ("mesh= places the chain's nodes on the devices of a mesh, which needs the "
-            "multi-process chain (ROADMAP Queue 1 item 3); on one card pass no mesh")
+            "multi-process chain (the ROADMAP's \"multi-process chain\" item, not ported "
+            "yet); on one card pass no mesh")
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ over torch states:
                                   concurrently (staggered multi-chain /
                                   one batched kernel launch, paper §VI)
   restore(step, like)          -> from hot if present, else decode any k of n
-  restore_latest(like)         -> newest restorable step (crash recovery)
+  restore_latest(like)         -> newest restorable step (crash recovery);
+                                  sharded=True decodes on the device
   manager.store.fail_node(i)   -> simulate node loss; restore still works
   repair(step)                 -> re-materialize lost coded blocks (targeted
                                   pipelined repair, digest-verified)
@@ -129,18 +130,21 @@ class CheckpointManager:
         blob = obj.join_blocks(blocks, manifest["blob_len"])
         return obj.bytes_to_leaves(blob, like)
 
-    def restore_latest(self, like):
+    def restore_latest(self, like, sharded: bool = False):
         """Newest restorable step (skips unrecoverable ones). Returns
         (step, state), or (None, None) when the store holds no checkpoints
         at all (a fresh run). When steps EXIST but none is restorable —
         too many shards lost, corrupt decodes — raises ValueError naming
         the root, the available steps, and why each one failed, instead of
-        silently restarting the run from scratch."""
+        silently restarting the run from scratch. ``sharded=True`` reads
+        each step through ``restore_sharded`` (coded steps decode on the
+        manager's device) instead of ``restore`` (the host decode)."""
+        read = self.restore_sharded if sharded else self.restore
         steps = arc.list_steps(self.store)
         errors = []
         for step in reversed(steps):
             try:
-                return step, self.restore(step, like)
+                return step, read(step, like)
             except (FileNotFoundError, AssertionError, ValueError) as e:
                 errors.append(f"step {step}: {type(e).__name__}: {e}")
         if steps:

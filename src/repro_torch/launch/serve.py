@@ -6,8 +6,9 @@
 The JAX package's ``repro.launch.serve`` on the port: prefill builds the
 cache, decode extends it token by token. The weights are cast to the
 compute dtype once per ``generate`` (an eager decode loop would otherwise
-copy the whole model at every token); random weights and prompts come from
-explicit ``torch.Generator`` s on the device.
+copy the whole model at every token); random weights, prompts and (for the
+encoder-decoder) encoder frames come from explicit ``torch.Generator`` s on
+the device.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.no_grad()
 def generate(cfg, params, prompts: torch.Tensor, max_new: int,
              enc_frames=None) -> tuple[np.ndarray, dict]:
     """prompts (B, S_prompt) int32 -> (B, S_prompt + max_new) tokens, greedy,
@@ -80,7 +82,11 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
                             device=dev, dtype=torch.int32)
-    out, stats = generate(cfg, params, prompts, args.max_new)
+    enc = None
+    if cfg.family == "encdec":      # the frontend stub's frame embeddings
+        enc = torch.randn((args.batch, cfg.enc_ctx, cfg.d_model), generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+    out, stats = generate(cfg, params, prompts, args.max_new, enc_frames=enc)
     print(f"generated {out.shape} tokens; prefill {stats['prefill_s']:.2f}s, "
           f"decode {stats['decode_tok_per_s']:.1f} tok/s")
 

@@ -51,6 +51,32 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+#
+# The reference's activations are compositions of primitives, and XLA rounds
+# a bfloat16 result after each one: ``jax.nn.sigmoid`` runs as 1 / (1 +
+# exp(-x)), ``jax.nn.silu`` as x * sigmoid(x), ``jax.nn.softplus`` as
+# max(x, 0) + log1p(exp(-|x|)). torch's fused ops round once, which moves a
+# third of the bfloat16 outputs by one unit; these run the same ops in the
+# same order, so they round where the reference does. The clamp keeps
+# exp(-x) finite (and its gradient free of inf * 0): below -87 the sigmoid is
+# under 2e-38 either way.
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (1 + torch.exp(-x.clamp(min=-87.0)))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
@@ -407,4 +433,4 @@ def mlp_init(gen, d: int, f: int, dtype, lead: tuple[int, ...] = ()) -> Params:
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+    return (silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]

@@ -1,14 +1,14 @@
-"""Top-level model API: config dataclass, init, forward, prefill, decode.
+"""Top-level model API: config dataclass, init, forward, loss, prefill, decode.
 
-The JAX package's ``repro.models.model`` serving surface in plain PyTorch:
+The JAX package's ``repro.models.model`` in plain PyTorch:
 functions over (config, params tree), the tree in the JAX package's layout.
 ``params_from_jax`` carries a JAX param tree (as numpy arrays) across and
 ``params_to_numpy`` back, so both packages compute from the same weights.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
-The ``ssm``, ``hybrid`` and ``encdec`` families raise
-``NotImplementedError``; ``loss_fn`` and the rest of training come with the
-training slice.
+All five families run: dense, MoE, SSM (RWKV6), hybrid (Hymba) through
+``repro_torch.models.transformer`` and encoder-decoder (Whisper) through
+``repro_torch.models.encdec``.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.hints import hint
+from repro_torch.models import encdec, transformer
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
 
 Params = dict[str, Any]
 
@@ -120,7 +120,6 @@ def init(seed, cfg: ModelConfig, device=None) -> Params:
     """Random parameters in the JAX package's tree layout. ``seed`` is an int
     or a ``torch.Generator`` (whose device then wins); the draws are made on
     the device by that generator (``device="meta"`` makes shapes only)."""
-    transformer.check_family(cfg)
     if isinstance(seed, torch.Generator):
         gen = seed
     else:
@@ -128,12 +127,16 @@ def init(seed, cfg: ModelConfig, device=None) -> Params:
         gen = _MetaGenerator() if dev.type == "meta" else \
             torch.Generator(device=dev).manual_seed(int(seed))
     dt = cfg.pdtype
-    return {
+    p: Params = {
         "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dt),
         "final_norm": L.rmsnorm_init(cfg.d_model, dt, device=gen.device),
         "lm_head": L.dense_init(gen, cfg.d_model, cfg.vocab, dt),
-        "layers": transformer.stack_init(gen, cfg, dt),
     }
+    if cfg.family == "encdec":
+        p.update(encdec.encdec_init(gen, cfg, dt))
+    else:
+        p["layers"] = transformer.stack_init(gen, cfg, dt)
+    return p
 
 
 class _MetaGenerator:
@@ -207,14 +210,39 @@ def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (x @ params["lm_head"].to(cfg.cdtype)).to(torch.float32)
 
 
+def _encode(params: Params, cfg: ModelConfig, enc_frames) -> torch.Tensor:
+    assert enc_frames is not None, "encdec family needs encoder frames"
+    return encdec.encode_audio(params, cfg, enc_frames.to(cfg.cdtype))
+
+
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             mrope_pos: torch.Tensor | None = None, enc_frames=None):
     """tokens (B,S) -> (logits (B,S,V) fp32, aux loss scalar)."""
-    transformer.check_family(cfg)
     params = cast_params(params, cfg)
     x = hint(_embed(params, cfg, tokens), "act")
-    x, aux = transformer.run_stack(params["layers"], cfg, x, mrope_pos=mrope_pos)
+    if cfg.family == "encdec":
+        x = encdec.run_decoder(params, cfg, x, _encode(params, cfg, enc_frames))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = transformer.run_stack(params["layers"], cfg, x, mrope_pos=mrope_pos)
     return hint(_logits(params, cfg, x), "logits"), aux
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict):
+    """Next-token cross entropy (+ z-loss + MoE aux). Labels of -1 are masked.
+    Returns (total, metrics), the metrics as 0-d float32 tensors."""
+    logits, aux = forward(params, cfg, batch["tokens"], mrope_pos=batch.get("mrope_pos"),
+                          enc_frames=batch.get("enc_frames"))
+    labels = batch["labels"].to(device=logits.device, dtype=torch.int64)
+    mask = (labels >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    nll = (lse - picked) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = nll.sum() / denom
+    zl = cfg.z_loss * (torch.square(lse) * mask).sum() / denom
+    total = ce + zl + cfg.aux_loss_weight * aux
+    return total, {"loss": total, "ce": ce, "z_loss": zl, "aux": aux, "tokens": mask.sum()}
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +251,10 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> Params:
-    transformer.check_family(cfg)
-    return transformer.stack_cache_init(cfg, batch, seq, cfg.cdtype, resolve_device(device))
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return encdec.dec_cache_init(cfg, batch, seq, cfg.cdtype, dev)
+    return transformer.stack_cache_init(cfg, batch, seq, cfg.cdtype, dev)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -234,10 +264,13 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     The returned cache covers seq positions [0, S); use ``extend_cache`` to
     grow it to the serving horizon before calling ``decode_step``.
     """
-    transformer.check_family(cfg)
     params = cast_params(params, cfg)
     x = _embed(params, cfg, tokens)
-    x, caches = transformer.run_stack_prefill(params["layers"], cfg, x, mrope_pos=mrope_pos)
+    if cfg.family == "encdec":
+        x, caches = encdec.run_decoder_prefill(params, cfg, x, _encode(params, cfg, enc_frames))
+    else:
+        x, caches = transformer.run_stack_prefill(params["layers"], cfg, x,
+                                                  mrope_pos=mrope_pos)
     return hint(_logits(params, cfg, x[:, -1]), "logits2d"), caches
 
 
@@ -268,11 +301,14 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Params,
                 token: torch.Tensor, pos: int):
     """One serve step: token (B,1) + cache -> (logits (B,V) fp32, cache).
 
-    The cache is written at ``pos`` in place and returned. Params already in
-    the compute dtype (``cast_params``) are used as they are.
+    The cache is updated in place (KV written at ``pos``, recurrent states
+    copied over) and returned. Params already in the compute dtype
+    (``cast_params``) are used as they are.
     """
-    transformer.check_family(cfg)
     params = cast_params(params, cfg)
     x = _embed(params, cfg, token)
-    x, cache = transformer.run_stack_decode(params["layers"], cfg, x, cache, pos)
+    if cfg.family == "encdec":
+        x, cache = encdec.run_decoder_decode(params, cfg, x, cache, pos)
+    else:
+        x, cache = transformer.run_stack_decode(params["layers"], cfg, x, cache, pos)
     return hint(_logits(params, cfg, x[:, 0]), "logits2d"), cache

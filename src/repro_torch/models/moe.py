@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, silu
 
 Params = dict[str, Any]
 F32 = torch.float32
@@ -73,7 +73,7 @@ def moe_forward(p: Params, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     combine = (slot_onehot * gate_vals[..., None, None] * onehot[..., None]).sum(dim=2)
 
     xin = torch.einsum("bsd,bsec->becd", x.to(F32), dispatch).to(x.dtype)  # (B,E,C,D)
-    h = F.silu(torch.einsum("becd,edf->becf", xin, p["wg"])) * \
+    h = silu(torch.einsum("becd,edf->becf", xin, p["wg"])) * \
         torch.einsum("becd,edf->becf", xin, p["wi"])
     eo = torch.einsum("becf,efd->becd", h, p["wo"])
     out = torch.einsum("becd,bsec->bsd", eo.to(F32), combine)

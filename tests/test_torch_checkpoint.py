@@ -22,6 +22,7 @@ the CPU run and skip without one.
 import collections
 import importlib.util
 import os
+import re
 from pathlib import Path
 
 import numpy as np
@@ -425,10 +426,30 @@ def test_restore_errors_are_the_references(tmp_path):
     mbr = arc.ArchiveConfig(n=6, k=4, l=8, family="mbr")
     with pytest.raises(ValueError, match="sub-packetized"):
         devio.save_state(obj.NodeStore(str(tmp_path / "m"), 6), 1, t, mbr, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="multi-process chain"):
         devio.save_state(store, 2, t, acfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="meta"):
         devio.save_state(store, 3, {"w": torch.empty(4, device="meta")}, acfg, device="cpu")
+
+
+def test_mesh_error_names_its_roadmap_item(tmp_path):
+    """``mesh=`` on either entry point names the ROADMAP item it waits for
+    by its name, which survives a renumbering of the queue, and that item
+    is in ROADMAP.md."""
+    acfg, _ = configs(8, 4, 16)
+    store = obj.NodeStore(str(tmp_path), 8)
+    t, _ = states()
+    devio.save_state(store, 1, t, acfg, device="cpu")
+    for call in (lambda: devio.save_state(store, 2, t, acfg, mesh=object(), device="cpu"),
+                 lambda: devio.restore_state(store, 1, t, acfg, mesh=object(), device="cpu"),
+                 lambda: manager.CheckpointManager(manager.CheckpointConfig(
+                     root=str(tmp_path / "m"), n=8, k=4), device="cpu").save_sharded(
+                         1, t, mesh=object())):
+        with pytest.raises(NotImplementedError, match='ROADMAP\'s "multi-process chain" item'):
+            call()
+    assert not re.search(r"Queue \d item \d", devio._NO_MESH)
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    assert "**The multi-process chain" in roadmap
 
 
 def test_place_and_shardings(tmp_path):
