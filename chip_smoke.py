@@ -185,12 +185,34 @@ last line:
    (relative) of the unbroken run's (CUDA's embedding backward adds with
    atomics, so the continued run is not bitwise). The counters over (b)'s
    saves and restores must show both tick kernels.
+19. Placement on the devices of a mesh, here meshes of ``[cuda:0] * n``:
+   ``repair_tick``'s ``last_forwards`` against its plain version, lockstep
+   and staggered, at small shapes; then (a) phase 3's object encoded by a
+   16-position chain in ``order_chain``'s order from seeded node speeds
+   (``N x num_chunks`` = 128 ``chain_tick`` launches, the codeword's
+   digests equal to phase 3's), decoded on an 11-position mesh after
+   losing ``[5, 6, 7, 8, 14]`` (88 ``repair_tick`` launches), the lost
+   shards repaired on an 11-helper mesh, and phase 9's 16 objects of 2^22
+   words encoded staggered on the 16-position mesh, each bit for bit the
+   unplaced call, with both calls' walls (first, median of 5) and device
+   times (CUDA events); (b) whisper-base's train state saved by
+   ``save_sharded`` from a 4 x 4 mesh (its manifest and files byte for byte
+   the unplaced save's), restored after the losses onto a 2 x 4 mesh
+   through ``shardings=`` (``sharding.state_shardings``: every leaf a
+   ``ShardedTensor`` of the state's bytes), and restored on the 2 x 4 mesh,
+   fewer positions than the 11 helpers, through ``gf_encode``; (c)
+   qwen3-1.7b's 28 layers at full width as 4 pipeline stages of 7
+   (``train.pipeline_parallel``) over phase 18's batch in 4 microbatches,
+   float32 with TF32 off: the output and every stacked gradient against
+   the sequential stack within ``PP_FWD_TOL`` / ``PP_GRAD_TOL`` of each
+   tensor's scale.
 
 Then one JSON line with every kernel's numbers over all of the run's
 launches (the staggered launches of phase 8 in rows of their own;
 ``slice_launches``: each kernel's launches over phases 13-14's counted
-runs, every one of which must be above 0, over phase 15's soak and over
-phase 18's saves and restores), and the device line.
+runs, every one of which must be above 0, over phase 15's soak, over
+phase 18's saves and restores and over phase 19's placed calls), and the
+device line.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -200,6 +222,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import filecmp
 import hashlib
 import itertools
 import json
@@ -225,12 +248,15 @@ from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.admission import AdmissionConfig, AdmissionController  # noqa: E402
 from repro_torch.data import pipeline as data_pipeline  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.storage import (archive, atomic, chain, lifecycle, multi,  # noqa: E402
                                  object_store, repair, serving, workload)
+from repro_torch.train import pipeline_parallel, sharding  # noqa: E402
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet and
 # Hopper white paper): HBM3 bandwidth, the non-tensor INT32 rate
@@ -322,6 +348,18 @@ CKPT_TRAIN_STEPS, CKPT_SAVE_EVERY = 8, 4     # phase 18 (b): saves at 4 and 8, r
 # so two runs of the same steps are not bitwise equal (the restored state
 # itself is held bit for bit).
 TRAIN_RESUME_TOL = 1e-3
+# Phase 19: the placed paths. The chain order comes from seeded node speeds
+# (order_chain); the elastic restore lands on an 8-position (data, model)
+# mesh; pipeline parallelism stacks qwen3-1.7b's 28 layers into 4 stages of
+# 7 over phase 18's batch in 4 microbatches, float32 with TF32 off, and is
+# held to the sequential stack within these shares of each tensor's largest
+# magnitude (microbatches of 2 change the GEMMs' shapes, and so their
+# summation order; PERF.md states them before the first run).
+PLACED_SPEED_RANGE = (0.5, 2.0)
+PLACED_MANY = TICK_SHAPES[0]             # phase 9's (16 objects, 2^22 words a block)
+PLACED_RESTORE_MESH = (2, 4)             # the elastic restore's 8 positions
+PP_STAGES, PP_MICRO = 4, 4
+PP_FWD_TOL, PP_GRAD_TOL = 1e-4, 1e-3
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -2128,6 +2166,271 @@ def phase_live(dev, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def check_last_forwards(dev, seed: int, errs: dict) -> None:
+    """``repair_tick``'s ``last_forwards`` (phase 19's middle positions) in
+    its lockstep and staggered forms against the plain version, at a small
+    size: every row of ``wire_out`` equal, ``out`` not written."""
+    rng = np.random.default_rng(seed + 19)
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    for l, rows, stagger in ((16, 11, 0), (16, 11, 2), (8, 13, 0), (8, 5, 3)):
+        n, C, S, n_obj = 3, 4, 96, 3
+        W = n_obj if stagger == 0 else pipeline.window_size(C, n_obj, stagger)
+        tables = torch.from_numpy(kernel.repair_tables(
+            gf.bitplane_table(rng.integers(0, 1 << l, size=(n, rows)), l), l)
+            .view(np.int32).copy()).to(dev)
+        shards = rand_i32(gen, (n, n_obj, C * S), dev)
+        wire_in = rand_i32(gen, (n, W, rows, S), dev)
+        rows_table = np.array([2, 0, 1], dtype=np.int32)
+        outs = {}
+        for fn in (kernel.repair_tick, ref.repair_tick_ref):
+            wo = torch.zeros((n + 1, W, rows, S), dtype=torch.int32, device=dev)
+            fn(wire_in, wo, shards, rows_table, None, tables, l, n, C, 0, n, False, stagger,
+               True)
+            outs[fn] = wo
+        check(torch.equal(outs[kernel.repair_tick], outs[ref.repair_tick_ref]),
+              f"repair_tick last_forwards == plain version (l={l}, rows={rows}, "
+              f"stagger {stagger})")
+        errs["repair_tick"] = max(errs["repair_tick"], max_abs_err(
+            outs[kernel.repair_tick], outs[ref.repair_tick_ref]))
+    print("repair_tick with last_forwards == plain version, lockstep and staggered "
+          "(GF(2^16) 11 rows, GF(2^8) 13 and 5 rows)")
+
+
+def placed_call(what: str, placed, unplaced, want: dict, tally: dict):
+    """Run the placed call once with the counters counted (``timed_call``),
+    then time it and the unplaced call: walls (first, median of 5) and device
+    time (CUDA events around the call, median of 3). Returns the placed
+    call's first result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = timed_call(f"{what}, placed (first call)", placed, want, tally)
+    first = (time.perf_counter() - t0) * 1e3
+    walls = {name: wall_ms(fn) for name, fn in (("placed", placed), ("unplaced", unplaced))}
+    dev_ms = {name: median_ms(fn, 3) for name, fn in (("placed", placed),
+                                                      ("unplaced", unplaced))}
+    print(f"{what}: placed {first:.3f} ms first call, {walls['placed']:.3f} ms median wall, "
+          f"{dev_ms['placed']:.3f} ms device; unplaced {walls['unplaced']:.3f} ms median wall, "
+          f"{dev_ms['unplaced']:.3f} ms device; launches {want}")
+    return out
+
+
+def phase_placed(code, dev, seed: int, cw704_digests, pool, errs: dict,
+                 block_words: int = 1 << 25) -> dict:
+    """Phase 19: the chain positions placed on the devices of meshes of
+    ``[cuda:0] * n``, through the entry points: (a) encode, decode, repair
+    and the staggered batch at the paper's geometry, bit for bit the
+    unplaced results; (b) the device-direct checkpoint on a 16-position
+    mesh, restored onto an 8-position one; (c) pipeline parallelism over 4
+    stages against the sequential stack. Returns the kernels' launches."""
+    tally = dict.fromkeys(kernel.launch_counts(), 0)
+    t_phase = time.perf_counter()
+    check_last_forwards(dev, seed, errs)
+
+    # (a) phase 3's object on a 16-position chain in order_chain's order
+    rng = np.random.default_rng(seed)
+    data_np = rng.integers(0, 1 << L, size=(K, block_words), dtype=np.uint16)
+    data_p = torch.from_numpy(data_np.view(np.int32)).to(dev)
+    data = gf.unpack_u32(data_p, L)
+    del data_np
+    speeds = np.random.default_rng(seed + 19).uniform(*PLACED_SPEED_RANGE, N)
+    order = chain.order_chain(speeds, N, K)
+    mesh = chain.make_chain_mesh(N, order, devices=[dev] * N)
+    print(f"placed paths: ({N},{K}) GF(2^{L}), phase 3's object ({K} blocks of {block_words} "
+          f"words), {NUM_CHUNKS} chunks, "
+          f"chain order {order.tolist()} from seeded speeds on a mesh of [{dev}] x {N} "
+          f"({smi('name,power.limit')})")
+    cw = placed_call("encode, 16 positions",
+                     lambda: chain.pipelined_encode(code, data, NUM_CHUNKS, mesh=mesh),
+                     lambda: chain.pipelined_encode(code, data, NUM_CHUNKS),
+                     {"chain_tick": N * NUM_CHUNKS}, tally)
+    check(card_digests(pool, cw) == cw704_digests,
+          "placed codeword == phase 3's unplaced codeword, bit for bit")
+    lost = CKPT_LOST
+    ids = [i for i in range(N) if i not in lost]
+    cw_p = gf.pack_u32(cw, L)
+    del cw
+    shards = gf.unpack_u32(cw_p[torch.tensor(ids, device=dev)], L)
+    mesh_dec = chain.make_chain_mesh(len(ids), devices=[dev] * len(ids))
+    rec = placed_call(f"decode, {len(ids)} positions, nodes {lost} lost",
+                      lambda: chain.pipelined_decode(code, ids, shards, NUM_CHUNKS, mesh=mesh_dec),
+                      lambda: chain.pipelined_decode(code, ids, shards, NUM_CHUNKS),
+                      {"repair_tick": len(ids) * NUM_CHUNKS}, tally)
+    check(torch.equal(gf.pack_u32(rec, L), data_p), "placed decode == the object, bit for bit")
+    del rec
+    h = len(fault_tolerance.repair_plan(code, lost, ids)[0])
+    mesh_rep = chain.make_chain_mesh(h, devices=[dev] * h)
+    rep = placed_call(f"repair of {len(lost)} shards, {h} positions",
+                      lambda: repair.pipelined_repair(code, ids, shards, lost, NUM_CHUNKS,
+                                                      mesh=mesh_rep),
+                      lambda: repair.pipelined_repair(code, ids, shards, lost, NUM_CHUNKS),
+                      {"repair_tick": h * NUM_CHUNKS}, tally)
+    check(torch.equal(gf.pack_u32(rep, L), cw_p[torch.tensor(lost, device=dev)]),
+          "placed repair == the lost shards, bit for bit")
+    del rep, shards, cw_p, data, data_p
+    torch.cuda.empty_cache()
+    n_obj, B = PLACED_MANY
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)       # phase 9's first objects
+    objects = gf.unpack_u32(rand_i32(gen, (n_obj, K, B // 2), dev), L)
+    ticks = pipeline.num_ticks_many(NUM_CHUNKS, N, n_obj, 1)
+    span = sum(pipeline.active_nodes_many(t, N, NUM_CHUNKS, n_obj, 1)[1] for t in range(ticks))
+    want = multi.pipelined_encode_many(code, objects, NUM_CHUNKS, 1)
+    got = placed_call(f"staggered encode, {n_obj} objects of {B} words, stagger 1, "
+                      f"{ticks} ticks",
+                      lambda: multi.pipelined_encode_many(code, objects, NUM_CHUNKS, 1, mesh=mesh),
+                      lambda: multi.pipelined_encode_many(code, objects, NUM_CHUNKS, 1),
+                      {"chain_tick": span}, tally)
+    check(torch.equal(got, want), "placed staggered encode == the unplaced batch, bit for bit")
+    del got, want, objects
+    torch.cuda.empty_cache()
+
+    # (b) whisper-base's train state saved from a 16-position mesh
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    like = whisper_state(lambda shape: torch.empty(shape, device="meta"))
+    state = whisper_state(lambda shape: torch.randn(shape, generator=gen, device=dev),
+                          count=19, step=19)
+    layout = devio.state_layout(like)
+    B = object_store.block_bytes_for(layout.blob_len, K, lane_bytes=devio.LANE_BYTES)
+    nc = devio._chunk_count(B // 2, L, NUM_CHUNKS)
+    mesh16 = mesh_lib.make_local_mesh(4, 4, devices=[dev] * 16)
+    mesh8 = mesh_lib.make_local_mesh(*PLACED_RESTORE_MESH, devices=[dev] * 8)
+    root = tempfile.mkdtemp(prefix="chip_smoke_placed-")
+    try:
+        mgrs = {name: manager.CheckpointManager(manager.CheckpointConfig(
+            root=os.path.join(root, name), n=N, k=K, l=L, seed=seed, archive_old=False))
+            for name in ("unplaced", "placed")}
+        m_u = timed_call("save_sharded, no mesh", lambda: mgrs["unplaced"].save_sharded(1, state),
+                         {"chain_tick": pipeline.num_ticks(nc, N)}, tally)
+        m_p = timed_call("save_sharded(mesh=4x4), 16 positions",
+                         lambda: mgrs["placed"].save_sharded(1, state, mesh=mesh16),
+                         {"chain_tick": N * nc}, tally)
+        files = sorted(os.path.relpath(os.path.join(d, f), mgrs["placed"].ccfg.root)
+                       for d, _, fs in os.walk(mgrs["placed"].ccfg.root) for f in fs)
+        check(m_p == m_u and all(filecmp.cmp(os.path.join(mgrs["placed"].ccfg.root, f),
+                                             os.path.join(mgrs["unplaced"].ccfg.root, f),
+                                             shallow=False) for f in files),
+              f"the placed save's manifest and {len(files)} files == the unplaced save's, "
+              f"byte for byte")
+        for i in CKPT_LOST:
+            mgrs["placed"].store.fail_node(i)
+        shardings = sharding.state_shardings(get_config(WHISPER_ARCH), mesh8, like)
+        got = timed_call(f"restore_sharded(mesh=4x4, shardings onto {mesh_lib.mesh_tag(mesh8)}) "
+                         f"after losing {CKPT_LOST}",
+                         lambda: mgrs["placed"].restore_sharded(1, like, mesh=mesh16,
+                                                                shardings=shardings),
+                         {"repair_tick": K * nc}, tally)
+        g, _ = object_store.tree_flatten(
+            got, is_leaf=lambda x: isinstance(x, sharding.ShardedTensor))
+        w, _ = object_store.tree_flatten(state)
+        check(all(isinstance(a, sharding.ShardedTensor) and a.placement.mesh == mesh8
+                  and len(a.shards) == mesh8.size for a in g),
+              "every restored leaf is laid out over the 8-position mesh")
+        check(all(torch.equal(a.full(), torch.as_tensor(b, device=dev)) for a, b in zip(g, w)),
+              "the placed leaves == the state, bit for bit")
+        del got, g
+        got = timed_call(f"restore_sharded(mesh={mesh_lib.mesh_tag(mesh8)}): {mesh8.size} "
+                         f"positions < {K} helpers, gf_encode",
+                         lambda: mgrs["placed"].restore_sharded(1, like, mesh=mesh8),
+                         {"gf_encode": 1}, tally)
+        check(leaves_equal(got, state), "the gf_encode restore == the state, bit for bit")
+        del got
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-1.7b's 28 layers as 4 pipeline stages of 7
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        pp_line = pipeline_stages(dev, seed)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    print(pp_line)
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s, launches {tally}")
+    return tally
+
+
+def pipeline_stages(dev, seed: int) -> str:
+    """Phase 19 (c): forward and gradients of qwen3-1.7b's layer stack as
+    ``PP_STAGES`` pipeline stages on a mesh of [dev] x 4 against the
+    sequential stack on one device; returns the report line."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), compute_dtype="float32", remat=False)
+    per = cfg.n_layers // PP_STAGES
+    params = lm.init(seed + 19, cfg, device=dev)
+    ocfg, dcfg = train_args(cfg, 1, seed)
+    tokens = data_pipeline.batch_for(cfg, data_pipeline.SyntheticSource(dcfg, device=dev),
+                                     0)["tokens"]
+    x = params["embed"][tokens].detach()
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    target = torch.randn(x.shape, generator=gen, device=dev)
+    layers = params["layers"]
+    del params
+    torch.cuda.empty_cache()
+
+    def stage_fn(p, h):
+        for i in range(per):
+            h, _ = transformer.decoder_layer(transformer.layer_slice(p, i), cfg, h, False, None)
+        return h
+
+    def loss_of(y, t):
+        return torch.mean((y - t) ** 2)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)])
+
+    stacked = lm._map(lambda a: a.detach().reshape(PP_STAGES, per, *a.shape[1:])
+                      .clone().requires_grad_(), layers)
+    seq = lm._map(lambda a: a.detach().clone().requires_grad_(), layers)
+    del layers
+    mesh = mesh_lib.DeviceMesh((pipeline_parallel.AXIS,), (PP_STAGES,), [dev] * PP_STAGES)
+    apply = pipeline_parallel.make_pipeline_fn(stage_fn, mesh, PP_MICRO)
+
+    def sequential(params):
+        h = x
+        for i in range(cfg.n_layers):
+            h, _ = transformer.decoder_layer(transformer.layer_slice(params, i), cfg, h, False,
+                                             None)
+        return h
+
+    def forward_backward(fn, params):
+        """(output, [first, second] walls in ms) of a forward and backward
+        pass, run twice from cleared gradients."""
+        walls = []
+        for _ in range(2):
+            for _, a in leaves(params):
+                a.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(params)
+            loss_of(out, target).backward()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return out.detach(), walls
+
+    y, pp_ms = forward_backward(lambda p: apply(p, x), stacked)
+    h, seq_ms = forward_backward(sequential, seq)
+    fwd = float((y - h).abs().max() / h.abs().max())
+    check(y.device == x.device and fwd <= PP_FWD_TOL,
+          f"pipelined forward within {PP_FWD_TOL} of the sequential stack's scale: {fwd:.3e}")
+    worst = ("", 0.0)
+    for (name, a), (_, b) in zip(leaves(stacked), leaves(seq)):
+        ga, gb = a.grad.reshape(b.grad.shape), b.grad
+        err = float((ga - gb).abs().max() / gb.abs().max().clamp(min=1e-30))
+        worst = max(worst, (name, err), key=lambda e: e[1])
+    check(worst[1] <= PP_GRAD_TOL,
+          f"every stacked gradient within {PP_GRAD_TOL} of its scale: worst {worst}")
+    n_leaves = sum(1 for _ in leaves(seq))
+    return (f"pipeline parallelism: {TRAIN_ARCH}'s {cfg.n_layers} layers at full width "
+            f"(d_model {cfg.d_model}) as {PP_STAGES} stages of {per} on a mesh of [{dev}] x "
+            f"{PP_STAGES}, batch {tuple(tokens.shape)} in {PP_MICRO} microbatches, float32 "
+            f"(TF32 off): forward + backward, first / second call, {pp_ms[0]:.1f} / "
+            f"{pp_ms[1]:.1f} ms pipelined, {seq_ms[0]:.1f} / {seq_ms[1]:.1f} ms sequential; "
+            f"forward max |diff| {fwd:.3e} of scale (tol {PP_FWD_TOL}), worst of "
+            f"{n_leaves} stacked gradients {worst[1]:.3e} ({worst[0]}; tol {PP_GRAD_TOL}) "
+            f"({smi('name,power.limit')})")
+
+
 def phase_lm_serve(dev, seed: int, arch: str = LM_ARCH, dims=(28, 2048, 151936),
                    prompt: int = LM_PROMPT) -> None:
     """Phases 16-17: ``arch`` at full width and depth, random weights from
@@ -2415,7 +2718,7 @@ def main() -> int:
 
 
 def run_phases(dev, seed: int, pool) -> int:
-    """Phases 1-18, then the kernels line and the device line."""
+    """Phases 1-19, then the kernels line and the device line."""
     t_start = time.perf_counter()
 
     # -- phase 1: build ------------------------------------------------------
@@ -2630,6 +2933,11 @@ def run_phases(dev, seed: int, pool) -> int:
     # -- phase 18: training, and a resume through the coded checkpoints ----------
     train_launches = phase_train(dev, seed)
 
+    # -- phase 19: chain positions and pipeline stages placed on mesh devices ----
+    placed_launches = phase_placed(code, dev, seed, cw704_digests, pool, errs)
+    check(all(placed_launches[name] > 0 for name in ("chain_tick", "repair_tick", "gf_encode")),
+          f"phase 19's paths launched chain_tick, repair_tick and gf_encode: {placed_launches}")
+
     rows = []
     for name, w in work.items():
         bytes_ms = w["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2644,7 +2952,8 @@ def run_phases(dev, seed: int, pool) -> int:
             "library_why": LIBRARY_WHY[name],
             "slice_launches": {"phases 13-14": slice_launches.get(name),
                                "phase 15": live_launches.get(name),
-                               "phase 18": train_launches.get(name)},
+                               "phase 18": train_launches.get(name),
+                               "phase 19": placed_launches.get(name)},
             "bytes": w["bytes"], "ops": w["ops"], "int8_ops": w["int8_ops"],
         })
         report_work(name, w, "all paths")

@@ -35,8 +35,16 @@ the exact ``tree_to_bytes`` offset. A state whose modeled footprint passes
 a budget is serialized on the host and streamed through the card
 (``save_state``'s ``footprint_bytes``).
 
-Not ported yet: ``mesh=`` (the state's devices as the chain's nodes, which
-needs the ROADMAP's "multi-process chain" item).
+``mesh=`` (a ``DeviceMesh``, the training mesh) draws the chain from its
+devices: chain position p is its p-th device (``sharding.chain_order``), so
+each position encodes or decodes on a device of the mesh
+(``chain.pipelined_encode``'s placement), and the coded blobs are those of
+a save with no mesh. A mesh with fewer devices than the chain has
+positions takes the static route, one ``gf_encode`` launch on its first
+device, as the JAX package's does. ``shardings=`` (a ``torch.device``, or
+a tree of devices or of ``sharding.Placement``s, as
+``sharding.state_shardings`` gives) places each restored leaf: the
+elastic restore onto another, smaller mesh.
 """
 from __future__ import annotations
 
@@ -48,15 +56,13 @@ import torch
 
 from repro_torch.core import codes, gf, jitcache, streaming
 from repro_torch.kernels.gf_encode import ops
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.storage import archive as arc
 from repro_torch.storage import chain as chain_lib
 from repro_torch.storage import object_store as obj
+from repro_torch.train import sharding
 
 LANE_BYTES = 64   # whole uint32 packing lanes AND chunk-divisible blocks
-
-_NO_MESH = ("mesh= places the chain's nodes on the devices of a mesh, which needs the "
-            "multi-process chain (the ROADMAP's \"multi-process chain\" item, not ported "
-            "yet); on one card pass no mesh")
 
 
 # ---------------------------------------------------------------------------
@@ -126,20 +132,21 @@ class _StateProgram:
 
 
 def _build_save(code, layout: StateLayout, num_chunks: int, use_chain: bool,
-                block_bytes: int, device: torch.device) -> _StateProgram:
+                block_bytes: int, device: torch.device, chain_mesh=None) -> _StateProgram:
     """One program: state leaves -> ((k, B) blocks, (n, B / (l/8)) coded
     words), both on ``device``.
 
     The original blocks come back beside the codeword so the caller can
     record ``orig_digests`` (what host restore verifies decode against)
-    without re-deriving them.
+    without re-deriving them. ``chain_mesh``: the chain's positions on
+    the mesh's devices (``_chain_mesh``), the first of them ``device``.
     """
     l, k = code.l, code.k
     prefix = torch.frombuffer(bytearray(layout.prefix), dtype=torch.uint8).to(device)
     plen = len(layout.prefix)
     if use_chain:
         encode = chain_lib.encode_program(code, block_bytes * 8 // l, num_chunks,
-                                          device=device)
+                                          **_on(chain_mesh, device))
     else:
         def encode(words):
             return ops.encode_words(code.G, words, l)
@@ -160,7 +167,7 @@ def _build_save(code, layout: StateLayout, num_chunks: int, use_chain: bool,
 
 def _build_restore(code, ids: tuple, layout: StateLayout, num_chunks: int,
                    use_chain: bool, block_bytes: int,
-                   device: torch.device) -> _StateProgram:
+                   device: torch.device, chain_mesh=None) -> _StateProgram:
     """One program: (k, Bw) survivor words on ``device`` -> tuple of leaves.
 
     Device-classified leaves come out in their stored dtype and shape
@@ -171,7 +178,7 @@ def _build_restore(code, ids: tuple, layout: StateLayout, num_chunks: int,
     l = code.l
     if use_chain:
         decode = chain_lib.decode_program(code, ids, block_bytes * 8 // l, num_chunks,
-                                          device=device)
+                                          **_on(chain_mesh, device))
     else:
         D = code.decode_matrix(list(ids))
 
@@ -202,22 +209,55 @@ def _chunk_count(Bw: int, l: int, num_chunks: int) -> int:
     return nc
 
 
+def _on(chain_mesh, device) -> dict:
+    """The placement keywords of a chain program: the mesh, or the device."""
+    return {"device": device} if chain_mesh is None else {"mesh": chain_mesh}
+
+
+def _run_device(mesh, device, what: str) -> torch.device:
+    """The device a program runs on: ``device``, or a mesh's first device."""
+    if mesh is None:
+        return chain_lib._resolve_device(device)
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"{what}: mesh must be a DeviceMesh, got {type(mesh).__name__}")
+    if device is not None:
+        raise ValueError(f"{what}: pass either mesh or device, not both")
+    return chain_lib._resolve_device(mesh.flat[0])
+
+
+def _chain_mesh(mesh, n: int) -> DeviceMesh | None:
+    """The n-position chain drawn from ``mesh``: position p on the mesh's
+    p-th device (``sharding.chain_order``). None for no mesh, and for a
+    mesh of fewer than n devices, which takes the static route."""
+    order = None if mesh is None else sharding.chain_order(mesh, n)
+    if order is None:
+        return None
+    return DeviceMesh((chain_lib.AXIS,), (n,), mesh.flat[:n], ids=order)
+
+
+def _place_leaf(a, target):
+    x = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    if isinstance(target, sharding.Placement):
+        return sharding.shard(x, target)
+    return x.to(target)
+
+
 def place(tree, shardings):
-    """Each leaf of ``tree`` as a tensor on its device: ``shardings`` is one
-    ``torch.device`` (or name) for every leaf, or a tree of them matching
-    ``tree``. The elastic-restart hook: a state restored anywhere resumes
-    on the devices of the new run."""
+    """Each leaf of ``tree`` on its devices: ``shardings`` is one
+    ``torch.device`` (or name) for every leaf, or a tree matching ``tree``
+    of devices or of ``sharding.Placement``s (a leaf then becomes a
+    ``sharding.ShardedTensor`` over the placement's mesh). The
+    elastic-restart hook: a state restored anywhere resumes on the devices
+    of the new run's mesh."""
     leaves, treedef = obj.tree_flatten(tree)
-    if isinstance(shardings, (torch.device, str)):
-        devices = [torch.device(shardings)] * len(leaves)
+    target = (torch.device, str, sharding.Placement)
+    if isinstance(shardings, target):
+        targets = [shardings] * len(leaves)
     else:
-        devices, sdef = obj.tree_flatten(
-            shardings, is_leaf=lambda x: isinstance(x, (torch.device, str)))
+        targets, sdef = obj.tree_flatten(shardings, is_leaf=lambda x: isinstance(x, target))
         if str(sdef) != str(treedef):
             raise ValueError(f"shardings {sdef} do not match the state {treedef}")
-    return treedef.unflatten(
-        (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))).to(d)
-        for a, d in zip(leaves, devices))
+    return treedef.unflatten(_place_leaf(a, d) for a, d in zip(leaves, targets))
 
 
 # ---------------------------------------------------------------------------
@@ -245,16 +285,19 @@ def save_state(store, step: int, state, acfg: arc.ArchiveConfig,
     writes (``archive.publish_streaming_archive``) — so a state larger than
     the card checkpoints under a fixed device budget. States that fit keep
     the zero-host-blob device-direct program.
+
+    ``mesh`` (a ``DeviceMesh``, in place of ``device``): chain position p
+    encodes on the mesh's p-th device (``sharding.chain_order``); a mesh of
+    fewer than n devices takes the ``gf_encode`` route on its first device
+    unless ``use_devices=True``. The coded blobs are the same either way.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     code = acfg.code()
     if not code.positionwise:
         raise ValueError(
             f"device-direct checkpointing needs a positionwise code; "
             f"{code.family!r} is sub-packetized — archive via the host "
             f"path (manager.save) or pick family='rapidraid'/'lrc'")
-    dev = chain_lib._resolve_device(device)
+    dev = _run_device(mesh, device, "save_state")
     layout = state_layout(state)
     B = obj.block_bytes_for(layout.blob_len, acfg.k, lane_bytes=LANE_BYTES)
     if footprint_bytes is None:
@@ -271,10 +314,14 @@ def save_state(store, step: int, state, acfg: arc.ArchiveConfig,
             superchunk_bytes=sc_words * (acfg.l // 8),
             state_key=layout.key[0], use_devices=use_devices, device=dev)
     nc = _chunk_count(B * 8 // acfg.l, acfg.l, num_chunks or acfg.num_chunks)
+    chain_mesh = _chain_mesh(mesh, acfg.n)
+    if mesh is not None and use_devices is None:
+        use_devices = chain_mesh is not None
     use_chain = arc._use_devices(use_devices) and code.supports_chain_encode
+    chain_mesh = chain_mesh if use_chain else None
     fn = jitcache.get(
-        ("ckpt_save", code.cache_key, use_chain, layout.key, B, nc, dev),
-        lambda: _build_save(code, layout, nc, use_chain, B, dev))
+        ("ckpt_save", code.cache_key, chain_mesh, use_chain, layout.key, B, nc, dev),
+        lambda: _build_save(code, layout, nc, use_chain, B, dev, chain_mesh))
     blocks, coded_w = fn(obj.tree_flatten(state)[0])
     return arc.publish_device_archive(
         store, step, acfg, blocks.cpu().numpy(), arc._u8(coded_w.cpu().numpy()),
@@ -291,14 +338,16 @@ def restore_state(store, step: int, like, acfg: arc.ArchiveConfig,
     ``like`` supplies the tree structure and the device/host classification
     (tensor leaves, ``meta`` templates included, come back as tensors on
     ``device``; numpy leaves as host arrays). ``shardings`` (one
-    ``torch.device`` or a matching tree of them) places each restored leaf
-    (``place``). Hot-tier, streamed and sub-packetized steps restore
+    ``torch.device``, or a matching tree of devices or of
+    ``sharding.Placement``s) places each restored leaf (``place``): the
+    elastic restore onto another mesh. ``mesh`` (in place of ``device``)
+    runs the decode chain's position p on the mesh's p-th device, or, for
+    a mesh of fewer devices than the k helpers, one ``gf_encode`` launch on
+    its first device. Hot-tier, streamed and sub-packetized steps restore
     through the host decode (``archive.restore_blocks``), as the JAX
     package's do.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
-    dev = chain_lib._resolve_device(device)
+    dev = _run_device(mesh, device, "restore_state")
     manifest = arc.get_manifest(store, step)
     layout = state_layout(like)
     blob_len = manifest.get("blob_len")
@@ -346,12 +395,16 @@ def restore_state(store, step: int, like, acfg: arc.ArchiveConfig,
                       for h in helpers]), manifest["l"])
         nc = _chunk_count(shards_w.shape[1], manifest["l"],
                           num_chunks or acfg.num_chunks)
+        chain_mesh = _chain_mesh(mesh, len(helpers))
+        if mesh is not None and use_devices is None:
+            use_devices = chain_mesh is not None
         use_chain = arc._use_devices(use_devices) and code.positionwise
+        chain_mesh = chain_mesh if use_chain else None
         fn = jitcache.get(
-            ("ckpt_restore", code.cache_key, helpers, use_chain, layout.key,
+            ("ckpt_restore", code.cache_key, helpers, chain_mesh, use_chain, layout.key,
              manifest["block_bytes"], nc, dev),
             lambda: _build_restore(code, helpers, layout, nc, use_chain,
-                                   manifest["block_bytes"], dev))
+                                   manifest["block_bytes"], dev, chain_mesh))
         out_leaves = fn(torch.from_numpy(shards_w).to(dev))
         leaves = []
         for leaf, meta, is_dev in zip(out_leaves, layout.metas,

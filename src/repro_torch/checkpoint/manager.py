@@ -78,11 +78,12 @@ class CheckpointManager:
         """Device-direct save: pack + erasure-code ``state`` from its
         tensors in ONE cached program — no host blob, no hot replicas; the
         optimizer state is coded instead of replicated. Still
-        bit-compatible with ``restore``. ``kwargs`` go to
-        ``devio.save_state`` (``use_devices``, ``footprint_bytes``,
-        ``num_chunks``)."""
+        bit-compatible with ``restore``. ``mesh`` (a ``DeviceMesh``, in
+        place of the manager's device) puts chain position p on its p-th
+        device. ``kwargs`` go to ``devio.save_state`` (``use_devices``,
+        ``footprint_bytes``, ``num_chunks``)."""
         manifest = devio.save_state(self.store, step, state, self.acfg,
-                                    mesh=mesh, device=self.device, **kwargs)
+                                    mesh=mesh, device=self._device(mesh), **kwargs)
         if self.ccfg.archive_old:
             self._migrate_old()
         return manifest
@@ -90,11 +91,17 @@ class CheckpointManager:
     def restore_sharded(self, step: int, like, mesh=None, shardings=None, **kwargs):
         """Decode + rebuild the state for ``step`` in one cached program.
         ``like`` fixes the tree and dtypes (tensor leaves come back on the
-        manager's device); pass ``shardings`` to re-place leaves. Tolerates
-        n-k lost shards like ``restore``."""
+        manager's device, or the mesh's first device); pass ``shardings``
+        (devices or ``sharding.Placement``s) to re-place leaves, onto a
+        smaller mesh after failures, say. Tolerates n-k lost shards like
+        ``restore``."""
         return devio.restore_state(self.store, step, like, self.acfg,
                                    mesh=mesh, shardings=shardings,
-                                   device=self.device, **kwargs)
+                                   device=self._device(mesh), **kwargs)
+
+    def _device(self, mesh):
+        """The manager's device, unless a mesh says where the chain runs."""
+        return self.device if mesh is None else None
 
     def archive(self, step: int, node_speeds=None) -> dict:
         return arc.archive_step(self.store, step, self.acfg,

@@ -26,6 +26,21 @@ repair (node idx plays position n-1-idx and the wire flows toward node 0,
 the replacement) is the same schedule over the node axis laid out in
 position order, ``position_nodes(n, reverse=True)``: the caller stacks its
 per-node operands in that order and runs the forward ticks.
+
+Placed chains (the JAX package's ``shard_map`` over a chain mesh): with a
+``placement``, the device of each chain position, every position holds its
+own tensors on its device, and a tick is one launch per active position on
+that position's device and current stream. Position p's incoming wire is a
+(1, ...) buffer and its outgoing one a (2, ...) buffer whose row 1 is the
+forward (the last position's is (1, ...): it forwards nothing), so a
+position is a launch over node 0 of a one-node chain at tick t - p.
+``lax.ppermute`` becomes a copy of position p's forward into position
+p + 1's incoming wire after the tick's launches: on one device a copy on
+its stream; across devices a peer copy, which PyTorch orders against both
+devices' current streams with events (the producer's launch before the
+copy, the consumer's earlier launch before it is overwritten). Ticks stay
+``num_chunks + n - 1`` (``num_ticks_many`` staggered); without a placement
+the run is the one-launch-a-tick path above.
 """
 from __future__ import annotations
 
@@ -66,19 +81,76 @@ def active_nodes(t: int, n: int, num_chunks: int) -> tuple[int, int]:
     return lo, hi - lo + 1
 
 
-def _wires(shape: tuple[int, ...], device: torch.device, wires) -> list[torch.Tensor]:
-    """The two wire buffers of a run: ``wires`` where the caller keeps them
-    (a captured graph binds their addresses), else two zeroed ones."""
+def position_devices(devices, reverse: bool = False) -> tuple[torch.device, ...]:
+    """The device of each chain position, position 0 first, for a chain
+    whose node i sits on ``devices[i]`` (a mesh's devices in row-major
+    order): position p is played by node ``position_nodes(n, reverse)[p]``."""
+    devices = [torch.device(d) for d in devices]
+    return tuple(devices[i] for i in position_nodes(len(devices), reverse))
+
+
+def placed_wires(shape: tuple[int, ...], placement) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Each position's (incoming, outgoing) wire on its device, for wires of
+    ``shape`` (n, ...) on one device: incoming (1, ...) zeroed (position 0's
+    stays zero, the head of the chain), outgoing (2, ...) with the forward
+    in row 1, or (1, ...) for the last position."""
+    return [(torch.zeros(i, dtype=torch.int32, device=d),
+             torch.empty(o, dtype=torch.int32, device=d))
+            for (i, o), d in zip(_wire_shapes(shape, placement), placement)]
+
+
+def make_wires(shape: tuple[int, ...], device: torch.device, placement=None) -> list:
+    """A run's wires: two zeroed (n, ...) buffers on ``device``, or with a
+    placement each position's pair (``placed_wires``)."""
+    if placement is not None:
+        return placed_wires(shape, placement)
+    return [torch.zeros(shape, dtype=torch.int32, device=device) for _ in range(2)]
+
+
+def _wire_shapes(shape: tuple[int, ...], placement) -> list:
+    """The shapes ``make_wires`` gives: two of ``shape``, or each
+    position's (incoming, outgoing) pair."""
+    if placement is None:
+        return [tuple(shape)] * 2
+    rest, n = tuple(shape[1:]), len(placement)
+    return [((1,) + rest, (2 if p < n - 1 else 1,) + rest) for p in range(n)]
+
+
+def _wires(shape: tuple[int, ...], device: torch.device, wires, placement=None) -> list:
+    """The wires of a run: ``wires`` where the caller keeps them (a
+    captured graph binds their addresses), else fresh ones (``make_wires``)."""
     if wires is None:
-        return [torch.zeros(shape, dtype=torch.int32, device=device) for _ in range(2)]
-    if len(wires) != 2 or any(tuple(w.shape) != tuple(shape) for w in wires):
-        raise ValueError(f"need two wire buffers of shape {tuple(shape)}")
+        return make_wires(shape, device, placement)
+    got = [tuple(w.shape) if isinstance(w, torch.Tensor) else tuple(tuple(x.shape) for x in w)
+           for w in wires]
+    if got != _wire_shapes(shape, placement):
+        raise ValueError(f"wire buffers {got} do not fit a run of wire shape {tuple(shape)}")
     return list(wires)
+
+
+def _run(step_fn: Callable, n: int, ticks: int, active: Callable, wires: list,
+         placement) -> int:
+    """The tick loop: one ``step_fn`` call over the active nodes a tick, or,
+    placed, one call a position and then the copies along the chain."""
+    if placement is None:
+        for t in range(ticks):
+            lo, count = active(t)
+            step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
+        return ticks
+    if len(placement) != n:
+        raise ValueError(f"a placement of {len(placement)} positions for a chain of {n}")
+    for t in range(ticks):
+        lo, count = active(t)
+        for p in range(lo, lo + count):
+            step_fn(wires[p][0], wires[p][1], t, p, 1)
+        for p in range(lo, min(lo + count, n - 1)):   # ppermute: p's forward -> p + 1
+            wires[p + 1][0].copy_(wires[p][1][1:])
+    return ticks
 
 
 def software_pipeline(step_fn: Callable, n: int, num_chunks: int,
                       wire_shape: tuple[int, ...], *,
-                      device: torch.device, wires=None) -> int:
+                      device: torch.device, wires=None, placement=None) -> int:
     """Run the chain pipeline over n nodes; returns the number of ticks.
 
     ``step_fn(wire_in, wire_out, t, node_lo, node_count)`` runs one tick:
@@ -88,15 +160,20 @@ def software_pipeline(step_fn: Callable, n: int, num_chunks: int,
     row 0 stays zero for the whole run. ``wires``: the caller's two buffers
     of that shape, row 0 zero (every other row is written before it is
     read), or None for two fresh zeroed ones.
+
+    ``placement``: the device of each chain position
+    (``position_devices``). Each active position p is then one
+    ``step_fn(wire_in, wire_out, t, p, 1)`` call on its own wires
+    (``placed_wires``: the caller launches node 0 of a one-node chain at
+    tick t - p, with its operands on its device), and its forward is copied
+    into position p + 1's incoming wire after the tick's launches.
+    ``wires`` is then the run's ``placed_wires`` or None.
     """
     if n < 1 or num_chunks < 1:
         raise ValueError(f"need n >= 1 and num_chunks >= 1, got {n}, {num_chunks}")
-    wires = _wires(wire_shape, device, wires)
-    ticks = num_ticks(num_chunks, n)
-    for t in range(ticks):
-        lo, count = active_nodes(t, n, num_chunks)
-        step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
-    return ticks
+    wires = _wires(wire_shape, device, wires, placement)
+    return _run(step_fn, n, num_ticks(num_chunks, n),
+                lambda t: active_nodes(t, n, num_chunks), wires, placement)
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +210,7 @@ def active_nodes_many(t: int, n: int, num_chunks: int, num_objects: int,
 
 def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
                        slot_shape: tuple[int, ...], *, num_objects: int,
-                       stagger: int, device: torch.device, wires=None) -> int:
+                       stagger: int, device: torch.device, wires=None, placement=None) -> int:
     """Interleave ``num_objects`` chain pipelines over the node axis; returns
     the number of ticks, ``num_ticks_many(...)``, against
     ``num_objects * num_ticks(...)`` for a loop of single-object runs.
@@ -143,16 +220,15 @@ def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
     (node i, object b) reads its incoming wire from ``wire_in[i, b % W]``,
     writes its own results in place and forwards into ``wire_out[i + 1,
     b % W]``. The wires are (n, W) + ``slot_shape`` int32 with W =
-    ``window_size(...)``; row 0 stays zero for the whole run. ``wires`` as
-    in ``software_pipeline``.
+    ``window_size(...)``; row 0 stays zero for the whole run. ``wires`` and
+    ``placement`` as in ``software_pipeline``: placed, each position's wires
+    carry its W slots, and the copy moves all of them.
     """
     if n < 1 or num_chunks < 1 or num_objects < 1 or stagger < 1:
         raise ValueError(f"need n, num_chunks, num_objects and stagger >= 1, got "
                          f"{n}, {num_chunks}, {num_objects}, {stagger}")
     W = window_size(num_chunks, num_objects, stagger)
-    wires = _wires((n, W) + tuple(slot_shape), device, wires)
-    ticks = num_ticks_many(num_chunks, n, num_objects, stagger)
-    for t in range(ticks):
-        lo, count = active_nodes_many(t, n, num_chunks, num_objects, stagger)
-        step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
-    return ticks
+    wires = _wires((n, W) + tuple(slot_shape), device, wires, placement)
+    return _run(step_fn, n, num_ticks_many(num_chunks, n, num_objects, stagger),
+                lambda t: active_nodes_many(t, n, num_chunks, num_objects, stagger),
+                wires, placement)

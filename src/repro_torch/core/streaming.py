@@ -39,7 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core import gf
+from repro_torch.core import gf, pipeline
 from repro_torch.kernels.gf_encode import kernel
 
 #: env knob that forces a small per-device streaming budget
@@ -161,13 +161,16 @@ class Program:
     packed int32 input (``in_lead`` + (lanes,)), read in place, ``out`` the
     packed output (``out_lead`` + (lanes,)), written in place, and
     ``wires`` the two wire buffers of shape ``wire_shape`` (None: fresh
-    zeroed ones). The builder closes it over what does not depend on the
-    data: the product tables on ``device``, the frozen host tables.
+    zeroed ones), or with a ``placement`` (the device of each chain
+    position, ``pipeline.position_devices``) each position's pair
+    (``pipeline.placed_wires``). The builder closes it over what does not
+    depend on the data: the product tables on ``device``, the frozen host
+    tables.
     """
 
     def __init__(self, *, device: torch.device, l: int, sc_words: int,
                  in_lead: tuple[int, ...], out_lead: tuple[int, ...],
-                 wire_shape: tuple[int, ...], ticks: Callable):
+                 wire_shape: tuple[int, ...], ticks: Callable, placement=None):
         self.device = device
         self.l = l
         self.sc_words = sc_words
@@ -175,6 +178,7 @@ class Program:
         self.out_lead = tuple(out_lead)
         self.wire_shape = tuple(wire_shape)
         self.ticks = ticks
+        self.placement = placement
         self._stripes: dict[int, _Stripes] = {}
 
     def _cache_size(self) -> int:
@@ -211,9 +215,11 @@ class Program:
 class _Stripes:
     """A program's streamed-run state on the card: ``depth + 1`` buffer
     slots (device input and output stripe, pinned host staging of each),
-    one pair of wires they share (the slots' graphs run one after another
+    one set of wires they share (the slots' graphs run one after another
     on one stream), one captured graph a slot, two copy streams and each
-    slot's events. The program owns every buffer for its lifetime, so no
+    slot's events. A graph cannot span devices: a program whose placement
+    puts a position on another device than its own captures none, and its
+    slots run the ticks eagerly. The program owns every buffer for its lifetime, so no
     tensor is freed while a copy or a replay on another stream may still
     use it; ``run`` waits for every stripe's last copy before it returns."""
 
@@ -226,8 +232,8 @@ class _Stripes:
                      for _ in range(self.slots)]
         self.d_out = [torch.zeros(out_shape, dtype=torch.int32, device=dev)
                       for _ in range(self.slots)]
-        self.wires = [torch.zeros(program.wire_shape, dtype=torch.int32, device=dev)
-                      for _ in range(2)]
+        self.wires = pipeline.make_wires(program.wire_shape, dev, program.placement)
+        devices = {dev} | set(program.placement or ())
         self.h_in = [torch.zeros(in_shape, dtype=torch.int32, pin_memory=True)
                      for _ in range(self.slots)]
         self.h_out = [torch.zeros(out_shape, dtype=torch.int32, pin_memory=True)
@@ -237,10 +243,12 @@ class _Stripes:
         # warm the kernels (library, first use of each instance) outside the
         # capture, then capture the tick sequence once a slot
         program.ticks(self.d_in[0], self.d_out[0], self.wires)
-        torch.cuda.synchronize(dev)
-        self.graphs = [kernel.Graph(
+        for d in devices:
+            torch.cuda.synchronize(d)
+        self.graphs = None if len(devices) > 1 else [kernel.Graph(
             lambda i=i: program.ticks(self.d_in[i], self.d_out[i], self.wires), dev)
             for i in range(self.slots)]
+        self.program = program
         self.h2d = torch.cuda.Stream(dev)
         self.d2h = torch.cuda.Stream(dev)
         self.in_done = [torch.cuda.Event() for _ in range(self.slots)]
@@ -275,7 +283,10 @@ class _Stripes:
                     self.d_in[i].copy_(self.h_in[i], non_blocking=True)
                     self.in_done[i].record(self.h2d)
                 cur.wait_event(self.in_done[i])
-                self.graphs[i].replay()
+                if self.graphs is None:
+                    self.program.ticks(self.d_in[i], self.d_out[i], self.wires)
+                else:
+                    self.graphs[i].replay()
                 self.computed[i].record(cur)
                 self.d2h.wait_event(self.computed[i])
                 with torch.cuda.stream(self.d2h):

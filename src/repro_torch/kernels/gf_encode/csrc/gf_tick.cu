@@ -68,7 +68,10 @@
 // repair_tick replaces repair_step_kernel / _repair_step_body (same file),
 // the decode and repair tick: node i adds D[r, i] * shard_i to each of the
 // `rows` partial sums it receives and forwards them to wire row i + 1, or,
-// as the last node n - 1, writes them to chunk t - i of `out`.
+// as the last node n - 1, writes them to chunk t - i of `out`. With
+// last_forwards the last node forwards too (to wire row n): a launch over
+// one position in the middle of a chain placed on the devices of a mesh,
+// whose successor is another launch.
 // Bound: memory. Per node and lane it reads its shard lane and `rows` sums
 // and writes `rows` sums, (1 + 2 rows) * 4 bytes: 4.8-5.1 ms of HBM over
 // the (16,11) GF(2^16) decode's 18 ticks. The bit-plane arithmetic of the
@@ -417,9 +420,9 @@ __device__ __forceinline__ void add_row_products(const uint32_t* s_grp, int pack
 
 // wire_in / wire_out (n, W, rows, S), shards: object b's shard row r at
 // shards + r * shard_row + b * shard_obj, out (B_obj, rows, Bp), tables
-// (n, packs, L/8, 256). Node n - 1 writes `out` instead of the wire. The
-// tables are staged `stage` packs at a time (a multiple of kGroupPacks, or
-// all of them).
+// (n, packs, L/8, 256). Node n - 1 writes `out` instead of the wire,
+// unless last_forwards (wire_out then has n + 1 rows). The tables are staged
+// `stage` packs at a time (a multiple of kGroupPacks, or all of them).
 template <int L, int VEC>
 __global__ void __launch_bounds__(kThreads)
     repair_tick_kernel(const uint32_t* __restrict__ wire_in,
@@ -429,7 +432,7 @@ __global__ void __launch_bounds__(kThreads)
                        const uint32_t* __restrict__ tables, const RepairNodes nodes,
                        const Window win, int n, int rows, int stage, long long Bp,
                        long long S, long long shard_row, long long shard_obj, int t,
-                       int node_lo, int head_zero) {
+                       int node_lo, int head_zero, int last_forwards) {
   extern __shared__ uint32_t s_tab[];  // `stage` packs' tables
   constexpr int P = kPackRows<L>;
   const int z = static_cast<int>(blockIdx.z);
@@ -445,7 +448,7 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t* wi = wire_in + (static_cast<size_t>(i) * win.W + w) * rows * S;
   uint32_t* dst;
   long long dst_stride;
-  if (i == n - 1) {
+  if (i == n - 1 && !last_forwards) {
     dst = out + static_cast<size_t>(o) * rows * Bp + static_cast<size_t>(ch) * S;
     dst_stride = Bp;
   } else {
@@ -531,7 +534,7 @@ int launch_repair_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* shards,
                        uint32_t* out, const uint32_t* tab, const RepairNodes& nodes,
                        const Window& win, int n, int rows, long long Bp, long long S,
                        long long shard_row, long long shard_obj, int t, int node_lo,
-                       int node_count, int head_zero, cudaStream_t st) {
+                       int node_count, int head_zero, int last_forwards, cudaStream_t st) {
   constexpr int pack_bytes = kPackWords<L> * 4;
   const int packs = (rows + kPackRows<L> - 1) / kPackRows<L>;
   // every pack's tables at once where they fit a block, else stages of
@@ -548,7 +551,7 @@ int launch_repair_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* shards,
   const dim3 grid = tick_grid(S / VEC, win.W, node_count);
   repair_tick_kernel<L, VEC><<<grid, kThreads, smem, st>>>(
       wi, wo, shards, out, tab, nodes, win, n, rows, stage, Bp, S, shard_row, shard_obj, t,
-      node_lo, head_zero);
+      node_lo, head_zero, last_forwards);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -565,7 +568,8 @@ bool bad_window(const Window& win) {
 // their rows are contiguous); `slots` and `shard_rows` are host tables.
 // The window is (W slots, n_obj objects, stagger, C chunks), stagger 0
 // being lockstep (W == n_obj). The caller has checked shapes, strides and
-// table values. Each function launches on `stream` and returns
+// table values. gf_repair_tick's `out` may be null with last_forwards, which
+// writes no output. Each function launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int gf_chain_tick(const void* wire_in, void* wire_out,
                              const void* src, void* out, const void* tables,
@@ -618,7 +622,8 @@ extern "C" int gf_repair_tick(const void* wire_in, void* wire_out,
                               const int* shard_rows, int l, int n, int W, int n_obj,
                               int stagger, int C, int rows, long long Bp, long long S,
                               long long shard_row, long long shard_obj, int t, int node_lo,
-                              int node_count, int head_zero, void* stream) {
+                              int node_count, int head_zero, int last_forwards,
+                              void* stream) {
   const Window win{W, n_obj, stagger, C};
   if (node_count < 1 || node_count > kMaxTickNodes || rows < 1 || bad_window(win))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -634,7 +639,7 @@ extern "C" int gf_repair_tick(const void* wire_in, void* wire_out,
   auto ou = static_cast<uint32_t*>(out);
   auto tb = static_cast<const uint32_t*>(tables);
 #define GF_REPAIR_ARGS wi, wo, sh, ou, tb, rn, win, n, rows, Bp, S, shard_row, shard_obj, t, \
-                       node_lo, node_count, head_zero, st
+                       node_lo, node_count, head_zero, last_forwards, st
   if (l == 8) return vec4 ? launch_repair_tick<8, 4>(GF_REPAIR_ARGS)
                           : launch_repair_tick<8, 1>(GF_REPAIR_ARGS);
   if (l == 16) return vec4 ? launch_repair_tick<16, 4>(GF_REPAIR_ARGS)

@@ -113,7 +113,7 @@ def load_library() -> ctypes.CDLL:
                                   i32, i64, i64, i64, i64, i32, i32, i32, i32, vp]
     lib.gf_chain_tick.restype = i32
     lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
-                                   i32, i64, i64, i64, i64, i32, i32, i32, i32, vp]
+                                   i32, i64, i64, i64, i64, i32, i32, i32, i32, i32, vp]
     lib.gf_repair_tick.restype = i32
     lib.gf_encode_mxu.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
     lib.gf_encode_mxu.restype = i32
@@ -379,10 +379,10 @@ chain_tick.launches = 0
 
 
 def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
-                shards: torch.Tensor, shard_rows, out: torch.Tensor,
+                shards: torch.Tensor, shard_rows, out: torch.Tensor | None,
                 tables: torch.Tensor, l: int, t: int, num_chunks: int,
                 node_lo: int, node_count: int, head_zero: bool = False,
-                stagger: int = 0) -> None:
+                stagger: int = 0, last_forwards: bool = False) -> None:
     """One decode or repair tick on the card (replaces ``repair_step_kernel``).
 
     Shapes: ``shards`` (R, B_obj, Bp) the callers' packed shards, read in
@@ -396,33 +396,43 @@ def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
     writes them to ``wire_out[i + 1]``, or, for the last node n - 1, to its
     chunk of ``out``. With ``head_zero`` the caller says ``wire_in[0]`` is
     zero (as the pipeline keeps it): node 0 starts from zero sums and that
-    row is not read. ``stagger`` and W as in ``chain_tick``.
+    row is not read. ``stagger`` and W as in ``chain_tick``. With
+    ``last_forwards`` node n - 1 forwards its sums to ``wire_out[n]`` like
+    any other node (``wire_out`` then has n + 1 rows) and nothing is written
+    to ``out``, which may be None: the launch of one chain position placed
+    on its own device, whose successor is another launch
+    (``pipeline.software_pipeline``'s ``placement``).
 
     Any rows: the tables are staged in shared memory in turn where they do
     not fit at once. A launch takes at most 256 nodes (the row table
     travels in its parameters); a tick over more nodes is several launches,
     and ``repair_tick.launches`` counts each.
     """
+    if out is None and not last_forwards:
+        raise ValueError("repair_tick: out is needed unless the last node forwards")
+    outs = {} if out is None else {"out": out}
     device = _check_tensors("repair_tick", strided=("shards",), wire_in=wire_in,
-                            wire_out=wire_out, shards=shards, out=out, tables=tables)
-    if shards.dim() != 3 or out.dim() != 3:
-        raise ValueError(f"repair_tick: shards {tuple(shards.shape)} / out "
-                         f"{tuple(out.shape)} must be (R, B_obj, Bp) / (B_obj, rows, Bp)")
+                            wire_out=wire_out, shards=shards, tables=tables, **outs)
+    if shards.dim() != 3 or wire_in.dim() != 4 or (out is not None and out.dim() != 3):
+        raise ValueError(f"repair_tick: shards {tuple(shards.shape)} / wire_in "
+                         f"{tuple(wire_in.shape)} must be (R, B_obj, Bp) / (n, W, rows, S)")
     R, n_obj, Bp = shards.shape
-    rows = out.shape[1]
+    rows = wire_in.shape[2]
     shard_rows = _checked_table(_check_shard_rows, "repair_tick", shard_rows, R)
     n = shard_rows.shape[0]
-    S, W = wire_in.shape[-1], wire_in.shape[1] if wire_in.dim() == 4 else 0
+    S, W = wire_in.shape[-1], wire_in.shape[1]
     _check_tick("repair_tick", l, t, num_chunks, node_lo, node_count, n, n_obj, W,
                 stagger, S, Bp)
-    if (rows < 1 or out.shape != (n_obj, rows, Bp)
+    if (rows < 1 or (out is not None and out.shape != (n_obj, rows, Bp))
             or tables.shape != (n, repair_packs(rows, l), l // 8, TABLE_BYTES)):
         raise ValueError(f"repair_tick: tables {tuple(tables.shape)} / out "
-                         f"{tuple(out.shape)} do not match {n} nodes over shards "
-                         f"{tuple(shards.shape)}")
-    if wire_in.shape != (n, W, rows, S) or wire_out.shape != wire_in.shape:
+                         f"{None if out is None else tuple(out.shape)} do not match {n} "
+                         f"nodes of {rows} sums over shards {tuple(shards.shape)}")
+    out_rows = n + 1 if last_forwards else n
+    if wire_in.shape != (n, W, rows, S) or wire_out.shape != (out_rows, W, rows, S):
         raise ValueError(f"repair_tick: wires {tuple(wire_in.shape)} -> "
-                         f"{tuple(wire_out.shape)} must be {(n, W, rows, S)}")
+                         f"{tuple(wire_out.shape)} must be {(n, W, rows, S)} -> "
+                         f"{(out_rows, W, rows, S)}")
     if wire_in.data_ptr() == wire_out.data_ptr():
         raise ValueError("repair_tick: wire_in and wire_out must not alias")
     lib = load_library()
@@ -430,10 +440,11 @@ def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         for lo, count in launch_ranges(node_lo, node_count, MAX_TICK_NODES):
             rc = lib.gf_repair_tick(wire_in.data_ptr(), wire_out.data_ptr(),
-                                    shards.data_ptr(), out.data_ptr(), tables.data_ptr(),
-                                    shard_rows.ctypes.data, l, n, W, n_obj, stagger,
-                                    num_chunks, rows, Bp, S, shards.stride(0),
-                                    shards.stride(1), t, lo, count, int(head_zero), stream)
+                                    shards.data_ptr(), 0 if out is None else out.data_ptr(),
+                                    tables.data_ptr(), shard_rows.ctypes.data, l, n, W,
+                                    n_obj, stagger, num_chunks, rows, Bp, S,
+                                    shards.stride(0), shards.stride(1), t, lo, count,
+                                    int(head_zero), int(last_forwards), stream)
             _raise_on("repair_tick", rc)
             repair_tick.launches += 1
 

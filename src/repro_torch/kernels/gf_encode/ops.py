@@ -60,13 +60,15 @@ def chain_tick(wire_in, wire_out, src, slots, out, tables, l: int, t: int,
 
 def repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l: int, t: int,
                 num_chunks: int, node_lo: int, node_count: int,
-                head_zero: bool = False, stagger: int = 0) -> None:
+                head_zero: bool = False, stagger: int = 0,
+                last_forwards: bool = False) -> None:
     """One decode or repair tick over nodes [node_lo, node_lo + node_count),
     lockstep or staggered; see ``kernel.repair_tick`` for shapes. Writes
-    ``out`` or ``wire_out`` in place."""
+    ``out`` or ``wire_out`` in place (only ``wire_out`` with
+    ``last_forwards``)."""
     fn = _route(shards, kernel.repair_tick, ref.repair_tick_ref)
     fn(wire_in, wire_out, shards, shard_rows, out, tables, l, t, num_chunks,
-       node_lo, node_count, head_zero, stagger)
+       node_lo, node_count, head_zero, stagger, last_forwards)
 
 
 def chain_step(x_in: torch.Tensor, local: torch.Tensor, bp_psi: torch.Tensor,

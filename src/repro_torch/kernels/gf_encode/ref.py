@@ -182,13 +182,15 @@ def repair_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
                     shards: torch.Tensor, shard_rows, out: torch.Tensor,
                     tables: torch.Tensor, l: int, t: int, num_chunks: int,
                     node_lo: int, node_count: int, head_zero: bool = False,
-                    stagger: int = 0) -> None:
+                    stagger: int = 0, last_forwards: bool = False) -> None:
     """Plain version of ``kernel.repair_tick``: same operands, same in-place
     writes. Gathers each (node, window slot)'s shard chunk through the row
     table and does the JAX kernel's bit-plane arithmetic, one mask per bit
     shared by all rows; the last node of the chain writes the output chunk
-    instead of the wire, and a slot with no object at this tick writes
-    nothing. With ``head_zero`` node 0 starts from zero sums.
+    instead of the wire, unless ``last_forwards`` (it then forwards to
+    ``wire_out[n]``, and ``out`` may be None), and a slot with no object at
+    this tick writes nothing. With ``head_zero`` node 0 starts from zero
+    sums.
 
     Of the tables it reads only the single-bit entries
     (``repair_table_planes``), which are the bit-planes ``D[r] * alpha^b``;
@@ -196,7 +198,7 @@ def repair_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
     ``gf.bitplane_table`` of the coefficients.
     """
     R, n_obj, Bp = shards.shape
-    n, rows = tables.shape[0], out.shape[1]
+    n, rows = tables.shape[0], wire_in.shape[2]
     W, S = wire_in.shape[1], Bp // num_chunks
     nodes, b, ch, active = _tick_objects(t, node_lo, node_count, W, n_obj, num_chunks,
                                          stagger, shards.device)
@@ -211,9 +213,9 @@ def repair_tick_ref(wire_in: torch.Tensor, wire_out: torch.Tensor,
     for bit in range(l):
         m = (blocks >> bit) & gf.LSB_MASK[l]
         acc ^= m[:, :, None, :] * bp[:, :, bit][:, None, :, None]
-    last = (nodes == n - 1)[:, None]
+    last = (nodes == n - 1)[:, None] & (not last_forwards)
     a, w = (active & ~last).nonzero(as_tuple=True)
     wire_out[nodes[a] + 1, w] = acc[a, w]
-    # the last node finishes the stream: its sums are the output chunk
-    a, w = (active & last).nonzero(as_tuple=True)
-    out.unflatten(-1, (num_chunks, S))[b[a, w], :, ch[a, w]] = acc[a, w]
+    if not last_forwards:   # the last node finishes the stream: its sums are the output chunk
+        a, w = (active & last).nonzero(as_tuple=True)
+        out.unflatten(-1, (num_chunks, S))[b[a, w], :, ch[a, w]] = acc[a, w]

@@ -41,9 +41,11 @@ ends (the paper's Fig. 5 insight); ``topology=`` engages the
 heterogeneity-aware scheduler (``repro_torch.core.scheduler``), whose
 plan (chain order and chunk count) the manifest records with the topology
 (``sched``), as the JAX package's does. Either way the manifest records
-the node->codeword-row mapping so decode is permutation-aware. On one
-card the chain order changes which node keeps which codeword row, not the
-kernels' work. Families without a chain encode through ``ops.encode_auto``
+the node->codeword-row mapping so decode is permutation-aware. Where the
+scheduler's order names distinct visible devices, the device chain plays
+it (``order=``, as the JAX package's ``_device_order``); on one card the
+chain order changes which node keeps which codeword row, not the kernels'
+work. Families without a chain encode through ``ops.encode_auto``
 (the bit-plane or the bit-lift kernel, as tuned).
 """
 from __future__ import annotations
@@ -59,6 +61,7 @@ from repro_torch.core import (classical, codes, fault_tolerance, gf, rapidraid, 
                               streaming)
 from repro_torch.core import topology as topo_lib
 from repro_torch.kernels.gf_encode import ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.storage import chain as chain_lib
 from repro_torch.storage import multi as multi_lib
 from repro_torch.storage import repair as repair_lib
@@ -226,6 +229,19 @@ def _plan_placement(acfg: ArchiveConfig, block_bytes: int, topology,
     return np.arange(acfg.n), acfg.num_chunks, None
 
 
+def _device_order(perm: np.ndarray, scheduled: bool, device) -> list[int] | None:
+    """Scheduler placement for the device chain, when the devices can play
+    it: ``perm`` must name distinct visible devices of ``device``'s kind
+    (``chain.pipelined_encode``'s ``order``). On one card no chain of n > 1
+    positions qualifies, and the chain runs unplaced."""
+    order = [int(p) for p in perm]
+    kind = chain_lib._resolve_device(device).type
+    if (scheduled and len(set(order)) == len(order)
+            and max(order) < len(mesh_lib.visible_devices(kind))):
+        return order
+    return None
+
+
 def _use_devices(use_devices: bool | None) -> bool:
     """The device route unless the caller turned it off: one card holds the
     whole chain (the JAX package asks for n devices)."""
@@ -308,8 +324,9 @@ def archive_step(store: NodeStore, step: int, acfg: ArchiveConfig,
     if sched is not None:
         sched = {**sched, "num_chunks": int(nc)}  # record what actually ran
     if _use_devices(use_devices) and code.supports_chain_encode:
-        coded_w = _host(chain_lib.pipelined_encode(code, data_w, num_chunks=nc,
-                                                   device=device))
+        coded_w = _host(chain_lib.pipelined_encode(
+            code, data_w, num_chunks=nc, device=device,
+            order=_device_order(perm, sched is not None, device)))
     else:
         # matrix-form host encode (bit-identical to the chain for
         # RapidRAID; the only encode for non-chain families)
@@ -401,7 +418,9 @@ def _archive_step_streaming(store: NodeStore, step: int, acfg: ArchiveConfig,
 
     try:
         if _use_devices(use_devices) and code.supports_chain_encode:
-            program = chain_lib.encode_program(code, plan.sc_words, nc, device=device)
+            program = chain_lib.encode_program(
+                code, plan.sc_words, nc, device=device,
+                order=_device_order(perm, sched is not None, device))
             streaming.execute(plan, program, get_stripe, put_stripe)
         else:
             # host oracle, stripe by stripe (positionwise: concatenation of
@@ -465,7 +484,8 @@ def _archive_group(store: NodeStore, grp: list[int], acfg: ArchiveConfig,
         sched = {**sched, "num_chunks": int(nc)}  # record what actually ran
     if use_devices and code.supports_chain_encode:
         coded_w = _host(multi_lib.pipelined_encode_many(
-            code, objs_w, num_chunks=nc, stagger=stagger, device=device))
+            code, objs_w, num_chunks=nc, stagger=stagger, device=device,
+            order=_device_order(perm, sched is not None, device)))
     else:
         # one batched static-coefficient encode over the whole group (the
         # bit-plane or the bit-lift kernel, as ``encode_auto`` dispatches);

@@ -31,13 +31,25 @@ reads its input in place with no graph.
 entry point and geometry, else the calibrated model's choice where a chain
 calibration is cached, else the hand-tuned ``DEFAULT_NUM_CHUNKS``.
 
-Not ported yet: the ``mesh=`` / ``order=`` placement of chain positions on
-devices (on one card a chain position is a row of a tensor, so the order
-has no effect on values).
+Placement (the JAX package's chain mesh): ``mesh=`` (a ``DeviceMesh`` of n
+devices, ``make_chain_mesh``) or ``order=`` (the scheduler's placement:
+device ``order[p]`` plays chain position p) puts each chain position on a
+device of its own. Each position then holds its own tensors there (its
+replica blocks or shard, its codeword rows, its wires), a tick is one
+launch per active position on its device (``pipeline.software_pipeline``'s
+``placement``), and the wire crosses to the next position by a copy. The
+input is read, and the result returned, on the first position's device;
+a position on another device gets its blocks or shard copied in and its
+output copied back. The same device may hold several positions: a mesh of
+``[cuda:0] * n`` runs the placed path on one card, bit for bit the
+unplaced result. A streamed run captures one CUDA graph a stripe buffer
+where every position shares the program's device, and none otherwise (a
+graph cannot span devices): its stripes then run the ticks eagerly.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,8 +57,10 @@ import torch
 from repro_torch.core import autotune, gf, jitcache, pipeline, streaming
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
+from repro_torch.launch import mesh as mesh_lib
 
 DEFAULT_NUM_CHUNKS = autotune.DEFAULT_NUM_CHUNKS
+AXIS = "chain"
 
 
 def _resolve_device(device=None) -> torch.device:
@@ -60,6 +74,166 @@ def _resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:   # the card a tensor .to(dev) lands on
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def make_chain_mesh(n: int, order=None, devices=None) -> mesh_lib.DeviceMesh:
+    """Chain mesh of n devices; ``order[p]`` is the device (an index into
+    ``devices``) playing chain position p (heterogeneity-aware placement,
+    ``repro_torch.core.scheduler``). Default: device p plays position p.
+    ``devices`` defaults to the visible CUDA devices; the same device may
+    appear more than once (``[cuda:0] * n`` on one card)."""
+    devs = mesh_lib.device_list(devices)
+    if len(devs) < n:
+        raise ValueError(f"need {n} devices for an n={n} chain, have {len(devs)}")
+    if order is None:
+        return mesh_lib.DeviceMesh((AXIS,), (n,), devs[:n])
+    order = tuple(int(i) for i in order)
+    if sorted(set(order)) != sorted(order) or len(order) != n:
+        raise ValueError(f"order must be {n} distinct device ids, got {list(order)}")
+    if max(order) >= len(devs):
+        raise ValueError(f"order references device {max(order)}, "
+                         f"have {len(devs)}")
+    return mesh_lib.DeviceMesh((AXIS,), (n,), [devs[i] for i in order], ids=order)
+
+
+def resolve_placement(n: int, mesh, order, device, what: str, reverse: bool = False):
+    """(the device the call reads its input and returns its result on, the
+    device of each chain position, the mesh; both None unplaced) for an
+    entry point's ``mesh`` / ``order`` / ``device``. With neither, the
+    unplaced call on ``device``. ``order`` indexes the visible devices of
+    ``device``'s kind; a mesh must hold n devices, of one kind, and the
+    call runs on the first position's. ``reverse``: the repair direction,
+    where mesh device i plays position n - 1 - i
+    (``pipeline.position_devices``)."""
+    if mesh is not None and order is not None:
+        raise ValueError("pass either mesh or order, not both")
+    if mesh is None and order is None:
+        return _resolve_device(device), None, None
+    if mesh is None:
+        mesh = make_chain_mesh(n, order, mesh_lib.visible_devices(_resolve_device(device).type))
+    elif not isinstance(mesh, mesh_lib.DeviceMesh):
+        raise TypeError(f"{what}: mesh must be a DeviceMesh, got {type(mesh).__name__}")
+    elif device is not None:
+        raise ValueError(f"{what}: pass either mesh or device, not both")
+    if mesh.size != n:
+        raise ValueError(f"{what}: a mesh of {mesh.size} devices for a chain of {n} positions")
+    placement = pipeline.position_devices([_resolve_device(d) for d in mesh.flat], reverse)
+    if len({d.type for d in placement}) > 1:
+        raise ValueError(f"{what}: a mesh mixes device kinds {set(placement)}")
+    return placement[0], placement, mesh
+
+
+class Position(NamedTuple):
+    """A chain position's own operands for a placed tick: its device, its
+    row of the caller's slot or row table (frozen host int32, (1, ...)),
+    its product tables on its device, and ``take``, the rows of the
+    caller's input it holds on its device (None: it reads the input in
+    place, on the call's device)."""
+    device: torch.device
+    rows: np.ndarray
+    tables: torch.Tensor
+    take: tuple | None
+
+
+def positions(placement, home: torch.device, table: np.ndarray,
+              tables: torch.Tensor) -> list[Position]:
+    """Each position's operands: ``table`` (n, ...) host int32 (block or
+    shard indices, -1 for none), ``tables`` (n, ...) on ``home``. A position
+    on another device holds the input rows its row names, renumbered."""
+    out = []
+    for p, dev in enumerate(placement):
+        row, take = np.asarray(table[p:p + 1]), None
+        if dev != home:
+            take = tuple(sorted({int(v) for v in row.ravel() if v >= 0})) or (0,)
+            row = np.array([take.index(v) if v >= 0 else -1 for v in row.ravel()]
+                           ).reshape(row.shape)
+        frozen = np.array(row, dtype=np.int32)   # owns its data: checked once
+        frozen.setflags(write=False)
+        out.append(Position(dev, frozen, tables[p:p + 1].to(dev), take))
+    return out
+
+
+def held(x: torch.Tensor, pos: Position, dim: int) -> torch.Tensor:
+    """The input a position reads: ``x`` in place, or its rows (along
+    ``dim``) copied onto its device."""
+    if pos.take is None:
+        return x
+    idx = torch.tensor(pos.take, dtype=torch.int64, device=x.device)
+    return x.index_select(dim, idx).to(pos.device)
+
+
+def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch.device,
+                 placement, drive):
+    """The tick loop of an encode program, ``ticks(src, out_nodes, wires)``
+    over ``src`` (B_obj, k, Bp) and ``out_nodes`` (n, B_obj, Bp), which
+    ``drive(step, wires)`` runs through the pipeline driver. Unplaced: one
+    ``chain_tick`` launch over the active nodes a tick. Placed: one a
+    position, each reading its own replica blocks and writing its codeword
+    rows."""
+    l = code.l
+    slots = placement_slots(code)
+    tables = device_tables(product_tables(code), device)
+    if placement is None:
+        def ticks(src, out_nodes, wires):
+            def step(wire_in, wire_out, t, lo, count):
+                ops.chain_tick(wire_in, wire_out, src, slots, out_nodes, tables, l, t,
+                               num_chunks, lo, count, stagger)
+            drive(step, wires)
+        return ticks
+    pos = positions(placement, device, slots, tables)
+
+    def placed_ticks(src, out_nodes, wires):
+        srcs = [held(src, q, 1) for q in pos]
+        outs = [out_nodes[p:p + 1] if q.take is None else
+                torch.empty((1,) + tuple(out_nodes.shape[1:]), dtype=torch.int32,
+                            device=q.device) for p, q in enumerate(pos)]
+
+        def step(wire_in, wire_out, t, p, _):
+            ops.chain_tick(wire_in, wire_out, srcs[p], pos[p].rows, outs[p], pos[p].tables,
+                           l, t - p, num_chunks, 0, 1, stagger)
+        drive(step, wires)
+        for p, q in enumerate(pos):
+            if q.take is not None:
+                out_nodes[p:p + 1].copy_(outs[p])
+    return placed_ticks
+
+
+def sums_ticks(l: int, rows_table: np.ndarray, tables: torch.Tensor, num_chunks: int,
+               stagger: int, device: torch.device, placement, drive):
+    """The tick loop of a decode or repair program, ``ticks(shards, out,
+    wires)`` over ``shards`` (R, B_obj, Bp) and ``out`` (B_obj, rows, Bp):
+    chain position p reads shard ``rows_table[p]`` and applies
+    ``tables[p]``; the last position writes ``out``; position 0 starts from
+    zero sums. Unplaced: one ``repair_tick`` launch over the active nodes a
+    tick. Placed: one a position, every position but the last forwarding
+    its sums (``last_forwards``)."""
+    if placement is None:
+        # a single-object call passes no stagger (lockstep), as it always has
+        staggered = {"stagger": stagger} if stagger else {}
+
+        def ticks(shards, out, wires):
+            def step(wire_in, wire_out, t, lo, count):
+                ops.repair_tick(wire_in, wire_out, shards, rows_table, out, tables, l, t,
+                                num_chunks, lo, count, head_zero=True, **staggered)
+            drive(step, wires)
+        return ticks
+    pos = positions(placement, device, rows_table, tables)
+    h = len(pos)
+
+    def placed_ticks(shards, out, wires):
+        srcs = [held(shards, q, 0) for q in pos]
+        last_out = out if pos[-1].take is None else torch.empty(
+            tuple(out.shape), dtype=torch.int32, device=pos[-1].device)
+
+        def step(wire_in, wire_out, t, p, _):
+            last = p == h - 1
+            ops.repair_tick(wire_in, wire_out, srcs[p], pos[p].rows,
+                            last_out if last else None, pos[p].tables, l, t - p, num_chunks,
+                            0, 1, head_zero=p == 0, stagger=stagger, last_forwards=not last)
+        drive(step, wires)
+        if pos[-1].take is not None:
+            out.copy_(last_out)
+    return placed_ticks
 
 
 def column_bitplanes(M: np.ndarray, l: int) -> np.ndarray:
@@ -206,33 +380,32 @@ def encode_operands(code: ErasureCode, data_packed: torch.Tensor):
 
 
 def _build_encode(code: ErasureCode, sc_words: int, num_chunks: int,
-                  device: torch.device) -> streaming.Program:
+                  device: torch.device, placement=None) -> streaming.Program:
     """The encode program of one stripe geometry: (k, sc_words) words ->
     (n, sc_words). The ticks read each node's replica blocks in place
     through the slot table and write every active node's codeword chunk
     straight into the (n, Bp) output; the wire has n rows (the last node's
-    forward is never read)."""
-    l, n = code.l, code.n
-    slots = placement_slots(code)
-    tables = device_tables(product_tables(code), device)
-    S = sc_words // gf.LANES[l] // num_chunks
+    forward is never read). Placed: one launch a position
+    (``encode_ticks``)."""
+    n = code.n
+    S = sc_words // gf.LANES[code.l] // num_chunks
+
+    def drive(step, wires):
+        pipeline.software_pipeline(step, n, num_chunks, (n, 1, S), device=device,
+                                   wires=wires, placement=placement)
+    run = encode_ticks(code, num_chunks, 0, device, placement, drive)
 
     def ticks(src, out, wires):
-        src, out = src[None], out[:, None]       # (1, k, Bp), (n, 1, Bp): views
+        run(src[None], out[:, None], wires)      # (1, k, Bp), (n, 1, Bp): views
 
-        def step(wire_in, wire_out, t, lo, count):
-            ops.chain_tick(wire_in, wire_out, src, slots, out, tables, l, t,
-                           num_chunks, lo, count)
-        pipeline.software_pipeline(step, n, num_chunks, (n, 1, S), device=device,
-                                   wires=wires)
-
-    return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(code.k,),
-                             out_lead=(n,), wire_shape=(n, 1, S), ticks=ticks)
+    return streaming.Program(device=device, l=code.l, sc_words=sc_words, in_lead=(code.k,),
+                             out_lead=(n,), wire_shape=(n, 1, S), ticks=ticks,
+                             placement=placement)
 
 
 def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
                      device=None, superchunk_words: int | None = None,
-                     sink=None) -> torch.Tensor | None:
+                     sink=None, mesh=None, order=None) -> torch.Tensor | None:
     """Archive object ``data`` (k, B) words -> codeword blocks (n, B) words.
 
     ``data`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
@@ -247,35 +420,42 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
     ``sink``, ``sink(s, coded_stripe)`` receives each trimmed (n, W) words
     array and None is returned. Stripes encode bit-identically to the
     monolithic call; the default single-stripe plan IS the monolithic call.
+
+    ``mesh`` (n devices, ``make_chain_mesh``) or ``order`` (device
+    ``order[p]`` of the visible ones plays chain position p) places the
+    chain positions on devices: row p of the result is position p's
+    codeword block, computed on its device and returned on the first
+    position's, bit for bit the unplaced result.
     """
     if not code.supports_chain_encode:
         raise ValueError(
             f"pipelined_encode: {code.family} has no chain schedule — "
             f"use code.encode_np")
-    dev = _resolve_device(device)
+    dev, placement, mesh = resolve_placement(code.n, mesh, order, device, "pipelined_encode")
     data = _words(data, code.l, code.k, "pipelined_encode")
     if num_chunks is None:   # tuned (or hand-tuned default) chunk count
         num_chunks = autotune.num_chunks_for("encode", code, data.shape[1], device=dev)
     plan, num_chunks = stream_plan(data.shape[1], superchunk_words, code.l, num_chunks,
                                    "pipelined_encode")
-    return run_program(("encode", code.cache_key, plan.sc_words, num_chunks, dev),
-                       lambda: _build_encode(code, plan.sc_words, num_chunks, dev),
+    return run_program(("encode", code.cache_key, mesh, plan.sc_words, num_chunks, dev),
+                       lambda: _build_encode(code, plan.sc_words, num_chunks, dev, placement),
                        data, plan, sink, dev)
 
 
 def encode_program(code: ErasureCode, sc_words: int, num_chunks: int = DEFAULT_NUM_CHUNKS,
-                   device=None) -> streaming.Program:
+                   device=None, mesh=None, order=None) -> streaming.Program:
     """The cached encode program of one stripe geometry, (k, sc_words) ->
     (n, sc_words) words: what a store-driven stream
     (``storage.archive.archive_step`` with ``superchunk_bytes``) hands to
     ``streaming.execute`` itself. Same key as ``pipelined_encode``, so a
-    store-driven and an in-memory stream of one geometry share a program."""
+    store-driven and an in-memory stream of one geometry share a program.
+    ``mesh`` / ``order`` as in ``pipelined_encode``."""
     if not code.supports_chain_encode:
         raise ValueError(f"encode_program: {code.family} has no chain schedule")
-    dev = _resolve_device(device)
+    dev, placement, mesh = resolve_placement(code.n, mesh, order, device, "encode_program")
     num_chunks = _check_chunking(sc_words, code.l, num_chunks, "encode_program")
-    return jitcache.get(("encode", code.cache_key, sc_words, num_chunks, dev),
-                        lambda: _build_encode(code, sc_words, num_chunks, dev))
+    return jitcache.get(("encode", code.cache_key, mesh, sc_words, num_chunks, dev),
+                        lambda: _build_encode(code, sc_words, num_chunks, dev, placement))
 
 
 @functools.lru_cache(maxsize=256)
@@ -315,32 +495,32 @@ def decode_operands(code: ErasureCode, ids, device: torch.device) -> torch.Tenso
 
 
 def _build_decode(code: ErasureCode, ids: tuple[int, ...], sc_words: int,
-                  num_chunks: int, device: torch.device) -> streaming.Program:
+                  num_chunks: int, device: torch.device, placement=None) -> streaming.Program:
     """The decode program of one survivor set and stripe geometry:
     (len(ids), sc_words) shards -> (k, sc_words) words. Node i reads shard
     i in place; only the last node's sums are kept, written straight into
-    the output; node 0 starts from zero sums and reads no wire."""
+    the output; node 0 starts from zero sums and reads no wire. Placed:
+    one launch a position (``sums_ticks``)."""
     l, k, n_alive = code.l, code.k, len(ids)
-    tables = device_tables(decode_tables(code, ids), device)
-    rows = identity_rows(n_alive)
     S = sc_words // gf.LANES[l] // num_chunks
 
-    def ticks(src, out, wires):
-        packed, out = src[:, None], out[None]    # (n_alive, 1, Bp), (1, k, Bp): views
-
-        def step(wire_in, wire_out, t, lo, count):
-            ops.repair_tick(wire_in, wire_out, packed, rows, out, tables, l, t,
-                            num_chunks, lo, count, head_zero=True)
+    def drive(step, wires):
         pipeline.software_pipeline(step, n_alive, num_chunks, (n_alive, 1, k, S),
-                                   device=device, wires=wires)
+                                   device=device, wires=wires, placement=placement)
+    run = sums_ticks(l, identity_rows(n_alive), device_tables(decode_tables(code, ids), device),
+                     num_chunks, 0, device, placement, drive)
+
+    def ticks(src, out, wires):
+        run(src[:, None], out[None], wires)      # (n_alive, 1, Bp), (1, k, Bp): views
 
     return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(n_alive,),
-                             out_lead=(k,), wire_shape=(n_alive, 1, k, S), ticks=ticks)
+                             out_lead=(k,), wire_shape=(n_alive, 1, k, S), ticks=ticks,
+                             placement=placement)
 
 
 def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = None,
                      device=None, superchunk_words: int | None = None,
-                     sink=None) -> torch.Tensor | None:
+                     sink=None, mesh=None) -> torch.Tensor | None:
     """Pipelined RapidRAID decode (paper §III's pipelined decoding).
 
     The len(ids) shard-holding nodes form a chain; the wire carries the k
@@ -353,27 +533,32 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
     ``num_chunks=None`` is tuned (``autotune.num_chunks_for``).
     ``superchunk_words`` / ``sink`` stream the decode as in
     ``pipelined_encode``: decode applies D per word, so the stripes
-    concatenate to the monolithic result.
+    concatenate to the monolithic result. ``mesh`` (len(ids) devices)
+    places survivor i's chain position on its i-th device, as in
+    ``pipelined_encode``; the result comes back on its first device.
     """
     if not code.positionwise:
         raise ValueError(
             f"pipelined_decode: {code.family} shards are sub-packetized — "
             f"use code.decode_np")
     ids = tuple(int(i) for i in ids)
-    dev = _resolve_device(device)
+    dev, placement, mesh = resolve_placement(len(ids), mesh, None, device,
+                                             "pipelined_decode")
     shards = _words(shards, code.l, len(ids), "pipelined_decode")
     if num_chunks is None:
         num_chunks = autotune.num_chunks_for("decode", code, shards.shape[1],
                                              chain_len=len(ids), device=dev)
     plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l, num_chunks,
                                    "pipelined_decode")
-    return run_program(("decode", code.cache_key, ids, plan.sc_words, num_chunks, dev),
-                       lambda: _build_decode(code, ids, plan.sc_words, num_chunks, dev),
+    return run_program(("decode", code.cache_key, ids, mesh, plan.sc_words, num_chunks, dev),
+                       lambda: _build_decode(code, ids, plan.sc_words, num_chunks, dev,
+                                             placement),
                        shards, plan, sink, dev)
 
 
 def decode_program(code: ErasureCode, ids, sc_words: int,
-                   num_chunks: int = DEFAULT_NUM_CHUNKS, device=None) -> streaming.Program:
+                   num_chunks: int = DEFAULT_NUM_CHUNKS, device=None,
+                   mesh=None) -> streaming.Program:
     """The cached decode program of one survivor set and stripe geometry,
     (len(ids), sc_words) shards -> (k, sc_words) words, under
     ``pipelined_decode``'s key: what a caller holding the shards on the
@@ -381,10 +566,11 @@ def decode_program(code: ErasureCode, ids, sc_words: int,
     if not code.positionwise:
         raise ValueError(f"decode_program: {code.family} shards are sub-packetized")
     ids = tuple(int(i) for i in ids)
-    dev = _resolve_device(device)
+    dev, placement, mesh = resolve_placement(len(ids), mesh, None, device,
+                                             "decode_program")
     num_chunks = _check_chunking(sc_words, code.l, num_chunks, "decode_program")
-    return jitcache.get(("decode", code.cache_key, ids, sc_words, num_chunks, dev),
-                        lambda: _build_decode(code, ids, sc_words, num_chunks, dev))
+    return jitcache.get(("decode", code.cache_key, ids, mesh, sc_words, num_chunks, dev),
+                        lambda: _build_decode(code, ids, sc_words, num_chunks, dev, placement))
 
 
 def order_chain(node_speeds: np.ndarray, n: int, k: int) -> np.ndarray:

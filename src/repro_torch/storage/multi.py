@@ -35,8 +35,12 @@ host-resident batch stripe by stripe, as in ``storage.chain``.
 (``repro_torch.core.autotune.num_chunks_for`` / ``stagger_for``), whose
 hand-tuned defaults are ``chain.DEFAULT_NUM_CHUNKS`` and a stagger of 1.
 
-Not ported yet: the ``mesh=`` / ``order=`` placement of chain positions on
-devices.
+``mesh=`` / ``order=`` on ``pipelined_encode_many`` and ``mesh=`` on
+``pipelined_decode_many`` place the chain positions on devices, as in
+``storage.chain``: each position holds every object's replica blocks or
+shard and codeword rows on its device, and a tick is one launch per
+position over its object window, the window's slots crossing to the next
+position by one copy.
 """
 from __future__ import annotations
 
@@ -44,10 +48,9 @@ import torch
 
 from repro_torch.core import autotune, gf, pipeline, streaming
 from repro_torch.core.codes import ErasureCode
-from repro_torch.kernels.gf_encode import ops
-from repro_torch.storage.chain import (_resolve_device, decode_tables, device_tables,
-                                       identity_rows, placement_slots, product_tables,
-                                       run_program, stream_plan)
+from repro_torch.storage.chain import (decode_tables, device_tables, encode_ticks,
+                                       identity_rows, resolve_placement, run_program,
+                                       stream_plan, sums_ticks)
 
 DEFAULT_STAGGER = 1
 
@@ -79,34 +82,35 @@ def batch_words(x, l: int, rows: int, what: str, name: str, rows_name: str,
 
 
 def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks: int,
-                       stagger: int, device: torch.device) -> streaming.Program:
+                       stagger: int, device: torch.device,
+                       placement=None) -> streaming.Program:
     """The staggered encode program: (B_obj, k, sc_words) -> (B_obj, n,
     sc_words) words. Every (node, object) with a chunk at a tick reads its
     replica blocks in place, writes its codeword chunk into object b's row
-    of the output and forwards its wire in slot b % W."""
-    l, n = code.l, code.n
-    slots = placement_slots(code)
-    tables = device_tables(product_tables(code), device)
-    S = sc_words // gf.LANES[l] // num_chunks
+    of the output and forwards its wire in slot b % W. Placed: one launch
+    a position (``chain.encode_ticks``)."""
+    n = code.n
+    S = sc_words // gf.LANES[code.l] // num_chunks
     W = pipeline.window_size(num_chunks, B_obj, stagger)
 
-    def ticks(src, out, wires):
-        out_nodes = out.transpose(0, 1)              # (n, B_obj, Bp), a view
-
-        def step(wire_in, wire_out, t, lo, count):
-            ops.chain_tick(wire_in, wire_out, src, slots, out_nodes, tables, l, t,
-                           num_chunks, lo, count, stagger)
+    def drive(step, wires):
         pipeline.staggered_pipeline(step, n, num_chunks, (S,), num_objects=B_obj,
-                                    stagger=stagger, device=device, wires=wires)
+                                    stagger=stagger, device=device, wires=wires,
+                                    placement=placement)
+    run = encode_ticks(code, num_chunks, stagger, device, placement, drive)
 
-    return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(B_obj, code.k),
-                             out_lead=(B_obj, n), wire_shape=(n, W, S), ticks=ticks)
+    def ticks(src, out, wires):
+        run(src, out.transpose(0, 1), wires)        # out as (n, B_obj, Bp), a view
+
+    return streaming.Program(device=device, l=code.l, sc_words=sc_words,
+                             in_lead=(B_obj, code.k), out_lead=(B_obj, n),
+                             wire_shape=(n, W, S), ticks=ticks, placement=placement)
 
 
 def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = None,
                           stagger: int | None = None, device=None,
                           superchunk_words: int | None = None,
-                          sink=None) -> torch.Tensor | None:
+                          sink=None, mesh=None, order=None) -> torch.Tensor | None:
     """Archive B_obj objects concurrently: (B_obj, k, B) -> (B_obj, n, B).
 
     ``objects`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
@@ -119,14 +123,16 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     (``autotune``). ``superchunk_words`` streams the whole batch
     stripe by stripe, each stripe one staggered run of the same cached
     program, and ``sink(s, (B_obj, n, W) words)`` takes each stripe's
-    result instead of an assembled batch.
+    result instead of an assembled batch. ``mesh`` / ``order`` place the
+    chain positions on devices for every object of the batch, as in
+    ``chain.pipelined_encode``.
     """
     if not code.supports_chain_encode:
         raise ValueError(
             f"pipelined_encode_many: {code.family} has no chain schedule — "
             f"use code.encode_np or the fused-kernel archive path")
     what = "pipelined_encode_many"
-    dev = _resolve_device(device)
+    dev, placement, mesh = resolve_placement(code.n, mesh, order, device, what)
     objects = batch_words(objects, code.l, code.k, what, "objects", "k")
     B_obj, _, B = objects.shape
     if num_chunks is None:
@@ -135,40 +141,41 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
     stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
-        ("encode_many", code.cache_key, B_obj, plan.sc_words, num_chunks, stagger, dev),
-        lambda: _build_encode_many(code, B_obj, plan.sc_words, num_chunks, stagger, dev),
+        ("encode_many", code.cache_key, mesh, B_obj, plan.sc_words, num_chunks, stagger, dev),
+        lambda: _build_encode_many(code, B_obj, plan.sc_words, num_chunks, stagger, dev,
+                                   placement),
         objects, plan, sink, dev)
 
 
 def _build_decode_many(code: ErasureCode, ids: tuple[int, ...], B_obj: int,
                        sc_words: int, num_chunks: int, stagger: int,
-                       device: torch.device) -> streaming.Program:
+                       device: torch.device, placement=None) -> streaming.Program:
     """The staggered decode program: (B_obj, len(ids), sc_words) shards ->
-    (B_obj, k, sc_words) words, every shard read in place."""
+    (B_obj, k, sc_words) words, every shard read in place (node i reads
+    shard i). Placed: one launch a position (``chain.sums_ticks``)."""
     l, k, n_alive = code.l, code.k, len(ids)
-    tables = device_tables(decode_tables(code, ids), device)
-    rows = identity_rows(n_alive)                    # node i reads shard i
     S = sc_words // gf.LANES[l] // num_chunks
     W = pipeline.window_size(num_chunks, B_obj, stagger)
 
-    def ticks(src, out, wires):
-        packed = src.transpose(0, 1)                 # (n_alive, B_obj, Bp), a view
-
-        def step(wire_in, wire_out, t, lo, count):
-            ops.repair_tick(wire_in, wire_out, packed, rows, out, tables, l, t,
-                            num_chunks, lo, count, head_zero=True, stagger=stagger)
+    def drive(step, wires):
         pipeline.staggered_pipeline(step, n_alive, num_chunks, (k, S), num_objects=B_obj,
-                                    stagger=stagger, device=device, wires=wires)
+                                    stagger=stagger, device=device, wires=wires,
+                                    placement=placement)
+    run = sums_ticks(l, identity_rows(n_alive), device_tables(decode_tables(code, ids), device),
+                     num_chunks, stagger, device, placement, drive)
+
+    def ticks(src, out, wires):
+        run(src.transpose(0, 1), out, wires)        # (n_alive, B_obj, Bp), a view
 
     return streaming.Program(device=device, l=l, sc_words=sc_words,
                              in_lead=(B_obj, n_alive), out_lead=(B_obj, k),
-                             wire_shape=(n_alive, W, k, S), ticks=ticks)
+                             wire_shape=(n_alive, W, k, S), ticks=ticks, placement=placement)
 
 
 def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None = None,
                           stagger: int | None = None, device=None,
                           superchunk_words: int | None = None,
-                          sink=None) -> torch.Tensor | None:
+                          sink=None, mesh=None) -> torch.Tensor | None:
     """Staggered multi-object pipelined decode (the dual of encode_many).
 
     ids: the len(ids) surviving codeword rows, shared across objects (after
@@ -181,7 +188,9 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
     the wire; the last node writes object b's decoded chunk. Node 0 starts
     from zero sums. ``num_chunks=None`` and ``stagger=None`` are tuned
     (``autotune``). ``superchunk_words`` / ``sink`` stream the
-    batch stripe by stripe, as in ``pipelined_encode_many``.
+    batch stripe by stripe, as in ``pipelined_encode_many``. ``mesh``
+    (len(ids) devices) places the survivors' chain positions, as in
+    ``chain.pipelined_decode``.
     """
     if not code.positionwise:
         raise ValueError(
@@ -189,7 +198,7 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
             f"sub-packetized — use code.decode_np")
     what = "pipelined_decode_many"
     ids = tuple(int(i) for i in ids)
-    dev = _resolve_device(device)
+    dev, placement, mesh = resolve_placement(len(ids), mesh, None, device, what)
     shards = batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
     B_obj, _, B = shards.shape
     if num_chunks is None:
@@ -198,6 +207,8 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
     plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
     stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
-        ("decode_many", code.cache_key, ids, B_obj, plan.sc_words, num_chunks, stagger, dev),
-        lambda: _build_decode_many(code, ids, B_obj, plan.sc_words, num_chunks, stagger, dev),
+        ("decode_many", code.cache_key, ids, mesh, B_obj, plan.sc_words, num_chunks, stagger,
+         dev),
+        lambda: _build_decode_many(code, ids, B_obj, plan.sc_words, num_chunks, stagger, dev,
+                                   placement),
         shards, plan, sink, dev)

@@ -45,8 +45,14 @@ survivor shard it is given, so a caller passes only the plan's helpers
 ``storage.archive`` does.
 
 ``num_chunks=None`` and ``stagger=None`` resolve through the tuner
-(``repro_torch.core.autotune``), over a chain of the plan's helpers. Not
-ported yet: ``mesh=``.
+(``repro_torch.core.autotune``), over a chain of the plan's helpers.
+
+``mesh=`` (one device per helper of the plan, in the plan's order) places
+the helper chain on devices, as ``storage.chain`` does: mesh device i
+holds helper i's shard and plays position h - 1 - i, so the wire flows
+toward mesh device 0, the replacement (``pipeline.position_devices(...,
+reverse=True)``); every position but the last forwards its partial sums
+(``repair_tick``'s ``last_forwards``).
 """
 from __future__ import annotations
 
@@ -60,8 +66,8 @@ from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
 from repro_torch.storage import multi
 from repro_torch.storage.chain import (_check_chunking, _resolve_device, _words,
-                                       column_bitplanes, device_tables, run_program,
-                                       stream_plan)
+                                       column_bitplanes, device_tables, resolve_placement,
+                                       run_program, stream_plan, sums_ticks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,47 +150,57 @@ def _survivor_shards(code: ErasureCode, ids, shards, what: str,
 
 def _build_repair(code: ErasureCode, missing: tuple[int, ...], ids: tuple[int, ...],
                   B_obj: int | None, sc_words: int, num_chunks: int, stagger: int,
-                  device: torch.device) -> streaming.Program:
+                  device: torch.device, placement=None) -> streaming.Program:
     """The pipelined repair program of one plan and stripe geometry: the
     survivors' shards, (len(ids), sc_words) or for B_obj objects (B_obj,
     len(ids), sc_words), -> the lost rows, (|missing|, sc_words) or (B_obj,
     |missing|, sc_words). The helpers form a reverse chain, each position
-    reading its helper's shard in place through the row table."""
+    reading its helper's shard in place through the row table. Placed: one
+    launch a position (``chain.sums_ticks``)."""
     l = code.l
     rows_table, tables = repair_operands(code, missing, ids, device)
     h, rows = len(rows_table), len(missing)
     S = sc_words // gf.LANES[l] // num_chunks
     if B_obj is None:
-        def ticks(src, out, wires):
-            packed, out = src[:, None], out[None]    # (len(ids), 1, Bp), (1, rows, Bp)
-
-            def step(wire_in, wire_out, t, lo, count):
-                ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
-                                num_chunks, lo, count, head_zero=True)
+        def drive(step, wires):
             pipeline.software_pipeline(step, h, num_chunks, (h, 1, rows, S), device=device,
-                                       wires=wires)
+                                       wires=wires, placement=placement)
+        run = sums_ticks(l, rows_table, tables, num_chunks, 0, device, placement, drive)
+
+        def ticks(src, out, wires):
+            run(src[:, None], out[None], wires)  # (len(ids), 1, Bp), (1, rows, Bp)
 
         return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(len(ids),),
-                                 out_lead=(rows,), wire_shape=(h, 1, rows, S), ticks=ticks)
+                                 out_lead=(rows,), wire_shape=(h, 1, rows, S), ticks=ticks,
+                                 placement=placement)
+
+    def drive_many(step, wires):
+        pipeline.staggered_pipeline(step, h, num_chunks, (rows, S), num_objects=B_obj,
+                                    stagger=stagger, device=device, wires=wires,
+                                    placement=placement)
+    run_many = sums_ticks(l, rows_table, tables, num_chunks, stagger, device, placement,
+                          drive_many)
 
     def ticks_many(src, out, wires):
-        packed = src.transpose(0, 1)                 # (len(ids), B_obj, Bp), a view
-
-        def step(wire_in, wire_out, t, lo, count):
-            ops.repair_tick(wire_in, wire_out, packed, rows_table, out, tables, l, t,
-                            num_chunks, lo, count, head_zero=True, stagger=stagger)
-        pipeline.staggered_pipeline(step, h, num_chunks, (rows, S), num_objects=B_obj,
-                                    stagger=stagger, device=device, wires=wires)
+        run_many(src.transpose(0, 1), out, wires)   # (len(ids), B_obj, Bp), a view
 
     W = pipeline.window_size(num_chunks, B_obj, stagger)
     return streaming.Program(device=device, l=l, sc_words=sc_words,
                              in_lead=(B_obj, len(ids)), out_lead=(B_obj, rows),
-                             wire_shape=(h, W, rows, S), ticks=ticks_many)
+                             wire_shape=(h, W, rows, S), ticks=ticks_many, placement=placement)
+
+
+def _repair_placement(code: ErasureCode, missing, ids, mesh, device, what: str):
+    """(device, placement, mesh) of a pipelined repair: a mesh holds one
+    device per helper of the plan, in the plan's order."""
+    h = len(_repair_plan_cached(code, missing, ids)[0]) if mesh is not None else 0
+    return resolve_placement(h, mesh, None, device, what, reverse=True)
 
 
 def pipelined_repair(code: ErasureCode, ids, shards, missing,
                      num_chunks: int | None = None, device=None,
-                     superchunk_words: int | None = None, sink=None) -> torch.Tensor | None:
+                     superchunk_words: int | None = None, sink=None,
+                     mesh=None) -> torch.Tensor | None:
     """Repair <= n-k lost shards by streaming k survivors through a chain.
 
     ids: surviving codeword rows; shards (len(ids), B) words (numpy or a
@@ -196,12 +212,14 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
     tuned (``autotune.num_chunks_for``). ``superchunk_words`` / ``sink`` stream the
     repair stripe by stripe (``storage.chain.pipelined_encode``), so a lost
     node on a many-stripe object heals without the card ever holding the
-    whole shards. Raises ValueError if the survivors are not decodable.
+    whole shards. ``mesh`` (one device per helper, ``repair_plan``'s order)
+    places the helper chain on devices; the result comes back on the first
+    position's. Raises ValueError if the survivors are not decodable.
     """
     what = "pipelined_repair"
     ids = tuple(int(i) for i in ids)
     missing = tuple(int(m) for m in missing)
-    dev = _resolve_device(device)
+    dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
     shards = _survivor_shards(code, ids, shards, what)
     B = shards.shape[1]
     if num_chunks is None:
@@ -210,15 +228,16 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
                                              device=dev)
     plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
     return run_program(
-        ("repair", code.cache_key, missing, ids, plan.sc_words, num_chunks, dev),
-        lambda: _build_repair(code, missing, ids, None, plan.sc_words, num_chunks, 0, dev),
+        ("repair", code.cache_key, missing, ids, mesh, plan.sc_words, num_chunks, dev),
+        lambda: _build_repair(code, missing, ids, None, plan.sc_words, num_chunks, 0, dev,
+                              placement),
         shards, plan, sink, dev)
 
 
 def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
                           num_chunks: int | None = None, stagger: int | None = None,
                           device=None, superchunk_words: int | None = None,
-                          sink=None) -> torch.Tensor | None:
+                          sink=None, mesh=None) -> torch.Tensor | None:
     """B_obj concurrent repairs as staggered reverse chains over one helper set.
 
     ids/missing are shared across objects (after a node failure every
@@ -229,7 +248,8 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     reads its helper's shard of object b in place from ``shards``.
     ``num_chunks=None`` and ``stagger=None`` are tuned (``autotune``).
     ``superchunk_words`` / ``sink`` stream the batch stripe by
-    stripe. Raises ValueError if the survivors are not decodable.
+    stripe. ``mesh`` places the helper chain as in ``pipelined_repair``.
+    Raises ValueError if the survivors are not decodable.
     """
     what = "pipelined_repair_many"
     if not code.positionwise:
@@ -237,7 +257,7 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
                          f"sub-packetized — use code.repair_np")
     ids = tuple(int(i) for i in ids)
     missing = tuple(int(m) for m in missing)
-    dev = _resolve_device(device)
+    dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
     shards = multi.batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
     B_obj, _, B = shards.shape
     if num_chunks is None:
@@ -247,10 +267,10 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
     stagger = multi.tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
-        ("repair_many", code.cache_key, missing, ids, B_obj, plan.sc_words, num_chunks,
+        ("repair_many", code.cache_key, missing, ids, mesh, B_obj, plan.sc_words, num_chunks,
          stagger, dev),
         lambda: _build_repair(code, missing, ids, B_obj, plan.sc_words, num_chunks, stagger,
-                              dev),
+                              dev, placement),
         shards, plan, sink, dev)
 
 

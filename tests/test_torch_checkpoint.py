@@ -22,7 +22,6 @@ the CPU run and skip without one.
 import collections
 import importlib.util
 import os
-import re
 from pathlib import Path
 
 import numpy as np
@@ -32,9 +31,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.checkpoint import devio, manager  # noqa: E402
 from repro_torch.core import autotune, jitcache  # noqa: E402
-from repro_torch.kernels.gf_encode import kernel  # noqa: E402
+from repro_torch.kernels.gf_encode import kernel, ops  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.storage import archive as arc  # noqa: E402
 from repro_torch.storage import object_store as obj  # noqa: E402
+from repro_torch.train import sharding  # noqa: E402
 
 try:  # the reference; a machine with only the port installed runs the gpu tests
     import jax
@@ -426,30 +427,10 @@ def test_restore_errors_are_the_references(tmp_path):
     mbr = arc.ArchiveConfig(n=6, k=4, l=8, family="mbr")
     with pytest.raises(ValueError, match="sub-packetized"):
         devio.save_state(obj.NodeStore(str(tmp_path / "m"), 6), 1, t, mbr, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process chain"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         devio.save_state(store, 2, t, acfg, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="meta"):
         devio.save_state(store, 3, {"w": torch.empty(4, device="meta")}, acfg, device="cpu")
-
-
-def test_mesh_error_names_its_roadmap_item(tmp_path):
-    """``mesh=`` on either entry point names the ROADMAP item it waits for
-    by its name, which survives a renumbering of the queue, and that item
-    is in ROADMAP.md."""
-    acfg, _ = configs(8, 4, 16)
-    store = obj.NodeStore(str(tmp_path), 8)
-    t, _ = states()
-    devio.save_state(store, 1, t, acfg, device="cpu")
-    for call in (lambda: devio.save_state(store, 2, t, acfg, mesh=object(), device="cpu"),
-                 lambda: devio.restore_state(store, 1, t, acfg, mesh=object(), device="cpu"),
-                 lambda: manager.CheckpointManager(manager.CheckpointConfig(
-                     root=str(tmp_path / "m"), n=8, k=4), device="cpu").save_sharded(
-                         1, t, mesh=object())):
-        with pytest.raises(NotImplementedError, match='ROADMAP\'s "multi-process chain" item'):
-            call()
-    assert not re.search(r"Queue \d item \d", devio._NO_MESH)
-    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    assert "**The multi-process chain" in roadmap
 
 
 def test_place_and_shardings(tmp_path):
@@ -472,6 +453,132 @@ def test_place_and_shardings(tmp_path):
     assert obj.tree_flatten(restored)[1] == obj.tree_flatten(placed)[1]
     with pytest.raises(ValueError, match="do not match"):
         manager.place(t, {"params": cpu})
+
+
+# ---------------------------------------------------------------------------
+# mesh=: the chain's positions on the devices of a mesh
+# ---------------------------------------------------------------------------
+
+
+def cpu_mesh(data, model):
+    return mesh_lib.make_local_mesh(data, model, devices=["cpu"] * (data * model))
+
+
+def tick_calls(monkeypatch):
+    """Counts of the ops' tick and static-encode calls (one a launch)."""
+    calls = collections.Counter()
+    for name in ("chain_tick", "repair_tick", "encode_words"):
+        real = getattr(ops, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(ops, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("n,k,l", GEOMS)
+def test_placed_save_state_equals_unplaced_and_reference(tmp_path, n, k, l, monkeypatch):
+    """``save_state(mesh=)`` with a mesh of n or more devices runs one tick
+    launch a chain position (n x num_chunks), and its coded blobs and
+    manifest are the unplaced save's and the JAX package's."""
+    acfg, jacfg = configs(n, k, l)
+    t, j = states()
+    ref = devio.save_state(obj.NodeStore(str(tmp_path / "u"), n), 1, t, acfg, device="cpu")
+    calls = tick_calls(monkeypatch)
+    m = devio.save_state(obj.NodeStore(str(tmp_path / "p"), n), 1, t, acfg,
+                         mesh=cpu_mesh(2, (n + 1) // 2))
+    assert calls == {"chain_tick": n * acfg.num_chunks}
+    assert m == ref == jdevio.save_state(jobj.NodeStore(str(tmp_path / "j"), n), 1, j, jacfg)
+    assert_same_tree(tmp_path / "p", tmp_path / "u")
+    assert_same_tree(tmp_path / "p", tmp_path / "j")
+
+
+@pytest.mark.parametrize("n,k,l", GEOMS)
+def test_placed_restore_state_after_losses(tmp_path, n, k, l, monkeypatch):
+    """``restore_state(mesh=)`` decodes on a chain of the k helpers placed on
+    the mesh's first k devices (one launch a position), bit for bit."""
+    acfg, _ = configs(n, k, l)
+    t, _ = states(seed=1)
+    store = obj.NodeStore(str(tmp_path), n)
+    devio.save_state(store, 1, t, acfg, device="cpu")
+    for i in range(n - k):
+        store.fail_node(2 * i % n)
+    calls = tick_calls(monkeypatch)
+    got = devio.restore_state(store, 1, t, acfg, mesh=cpu_mesh(1, n))
+    assert calls == {"repair_tick": k * acfg.num_chunks}
+    assert_state_equal(got, t)
+    with pytest.raises(ValueError, match="either mesh or device"):
+        devio.restore_state(store, 1, t, acfg, mesh=cpu_mesh(1, n), device="cpu")
+
+
+@pytest.mark.parametrize("n,k,l", GEOMS)
+def test_mesh_smaller_than_the_chain_takes_gf_encode(tmp_path, n, k, l, monkeypatch):
+    """A mesh of fewer devices than the chain has positions saves (n - 1
+    devices) and restores (k - 1) through one static encode on its first
+    device, as the JAX package's ``use_chain`` does; same blobs, same state."""
+    acfg, _ = configs(n, k, l)
+    t, _ = states(seed=2)
+    ref = devio.save_state(obj.NodeStore(str(tmp_path / "u"), n), 1, t, acfg, device="cpu")
+    calls = tick_calls(monkeypatch)
+    store = obj.NodeStore(str(tmp_path / "p"), n)
+    m = devio.save_state(store, 1, t, acfg, mesh=cpu_mesh(1, n - 1))
+    assert calls == {"encode_words": 1} and m == ref
+    assert_same_tree(tmp_path / "p", tmp_path / "u")
+    store.fail_node(0)
+    calls.clear()
+    assert_state_equal(devio.restore_state(store, 1, t, acfg, mesh=cpu_mesh(1, k - 1)), t)
+    assert calls == {"encode_words": 1}
+
+
+@pytest.mark.parametrize("n,k,l", GEOMS)
+def test_manager_sharded_save_and_restore_on_a_mesh(tmp_path, n, k, l, monkeypatch):
+    """``save_sharded`` / ``restore_sharded`` take the mesh in place of the
+    manager's device; the store is the unplaced manager's."""
+    cfg = dict(n=n, k=k, l=l, seed=3, archive_old=False)
+    t, _ = states(seed=3)
+    ref = manager.CheckpointManager(manager.CheckpointConfig(root=str(tmp_path / "u"), **cfg),
+                                    device="cpu")
+    mgr = manager.CheckpointManager(manager.CheckpointConfig(root=str(tmp_path / "p"), **cfg),
+                                    device="cpu")
+    mesh = cpu_mesh(2, n)
+    assert mgr.save_sharded(4, t, mesh=mesh) == ref.save_sharded(4, t)
+    assert_same_tree(tmp_path / "p", tmp_path / "u")
+    mgr.store.fail_node(n - 1)
+    calls = tick_calls(monkeypatch)
+    assert_state_equal(mgr.restore_sharded(4, t, mesh=mesh), t)
+    assert calls == {"repair_tick": k * mgr.acfg.num_chunks}
+
+
+def test_elastic_restore_onto_smaller_mesh(tmp_path):
+    """The JAX package's elastic case on ``[cpu] * 16``: save on a 4x4 mesh,
+    lose three nodes, restore and ``place`` onto a 2x2 mesh per
+    ``Placement``s; ``restore_sharded(shardings=)`` does it in one call."""
+    mesh16, mesh4 = cpu_mesh(4, 4), cpu_mesh(2, 2)
+    sh4 = sharding.Placement(mesh4, sharding.Spec("data", "model"))
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    m = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    state = {"params": {"w": w}, "opt": {"m": m, "count": torch.tensor(9, dtype=torch.int32)},
+             "step": np.int64(4)}
+    mgr = manager.CheckpointManager(manager.CheckpointConfig(root=str(tmp_path),
+                                                             archive_old=False), device="cpu")
+    mgr.save_sharded(4, state, mesh=mesh16)
+    for i in (1, 6, 12):
+        mgr.store.fail_node(i)
+    back = mgr.restore_sharded(4, state, mesh=mesh16)
+    assert int(back["step"]) == 4
+    placed = manager.place({"params": back["params"], "opt": back["opt"]},
+                           {"params": {"w": sh4}, "opt": {
+                               "m": sh4, "count": sharding.Placement(mesh4, sharding.Spec())}})
+    pw = placed["params"]["w"]
+    assert isinstance(pw, sharding.ShardedTensor) and pw.placement == sh4
+    assert [tuple(x.shape) for x in pw.shards] == [(8, 4)] * 4
+    assert torch.equal(pw.full(), w) and torch.equal(placed["opt"]["m"].full(), m)
+    assert int(placed["opt"]["count"].full()) == 9
+    mgr.save_sharded(5, {"w": w}, mesh=mesh16)
+    back2 = mgr.restore_sharded(5, {"w": w}, shardings={"w": sh4})
+    assert back2["w"].placement == sh4 and torch.equal(back2["w"].full(), w)
 
 
 # ---------------------------------------------------------------------------
@@ -510,3 +617,32 @@ def test_device_direct_routes_on_the_card(tmp_path, cuda, l):
         assert got["w"].device.type == "cuda"
         assert_state_equal({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
                             for k, v in got.items()}, state)
+
+
+@pytest.mark.gpu
+def test_mesh_across_cards(tmp_path):
+    """Chain positions on every card of the host: the save's blobs are the
+    CPU save's, the restore is bit for bit, and ``shardings=`` lays each
+    leaf's blocks out on the cards of a 2 x 2 mesh."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA cards")
+    cards = [torch.device("cuda", i % count) for i in range(16)]
+    mesh16 = mesh_lib.make_local_mesh(4, 4, devices=cards)
+    mesh4 = mesh_lib.make_local_mesh(2, 2, devices=cards[:4])
+    acfg = arc.ArchiveConfig(n=16, k=11, l=16, seed=3)
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32))
+    state = {"w": w.to(cards[0]), "step": np.int64(2)}
+    ref = devio.save_state(obj.NodeStore(str(tmp_path / "cpu"), 16), 1, {"w": w, "step":
+                                                                          np.int64(2)},
+                           acfg, device="cpu")
+    store = obj.NodeStore(str(tmp_path / "cards"), 16)
+    assert devio.save_state(store, 1, state, acfg, mesh=mesh16) == ref
+    for i in (0, 5, 9):
+        store.fail_node(i)
+    sh = sharding.Placement(mesh4, sharding.Spec("data", "model"))
+    got = devio.restore_state(store, 1, state, acfg, mesh=mesh16,
+                              shardings={"w": sh, "step": "cpu"})
+    assert [s.device for s in got["w"].shards] == list(mesh4.flat)
+    assert torch.equal(got["w"].full().cpu(), w) and int(got["step"]) == 2

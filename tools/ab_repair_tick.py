@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time two builds of the decode and repair tick (``repair_tick``) in one process.
 
-    python3 tools/ab_repair_tick.py --old FILE [--old-api planes|rows] [--seed 0] [--reps 5]
+    python3 tools/ab_repair_tick.py --old FILE [--old-api planes|rows|window] [--seed 0]
+        [--reps 5]
 
 FILE is an earlier ``gf_tick.cu`` (put under the gitignored ``build/``),
 built with nvcc into a second library beside the package's own. Its
-repair tick takes one of two C interfaces:
+repair tick takes one of three C interfaces:
 
 - ``planes`` (the default; e.g. ``git show 772ced6:...``):
   ``gf_repair_tick(wire_in, wire_out, local, out, bp, l, n, O, rows, Bp,
@@ -15,7 +16,9 @@ repair tick takes one of two C interfaces:
   object window): ``gf_repair_tick(wire_in, wire_out, shards, out,
   tables, shard_rows, l, n, O, rows, Bp, S, t, node_lo, node_count,
   head_zero, stream)``, the package's operands without the window's
-  arguments.
+  arguments;
+- ``window`` (e.g. ``git show e5b6a88:...``, the object window before
+  ``last_forwards``): the package's interface without that flag.
 
 At ``chip_smoke.py``'s shapes — a (16,11) RapidRAID code over GF(2^16),
 2^25 words a block, 8 chunks, 5 nodes lost (the first decodable 5-node
@@ -24,10 +27,10 @@ survivors and the 18 ticks of the pipelined repair of the 5 lost blocks run
 through the old build (on the helpers' shards gathered in chain order, as
 the old repair made them, or on the package's operands) and through the
 package's kernel (reading the shards in place through the row table, node
-0's zero head row not read) in turns: old, new, new, old. With ``rows``,
-the package's kernel is also called straight through ctypes, as the old
-one is (``new_direct``: old, new, new_direct, new_direct, new, old), so the
-two builds' launches cost the host the same. Every result is
+0's zero head row not read) in turns: old, new, new, old. With ``rows`` or
+``window``, the package's kernel is also called straight through ctypes,
+as the old one is (``new_direct``: old, new, new_direct, new_direct, new,
+old), so the two builds' launches cost the host the same. Every result is
 checked against the object or the lost codeword rows. Prints one JSON line
 with the CUDA-event medians and the card's name and power limit. Needs one
 CUDA card.
@@ -61,10 +64,10 @@ def build_old(source: Path, api: str) -> ctypes.CDLL:
     kernel.build_shared([source], out)
     lib = ctypes.CDLL(str(out))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gf_repair_tick.argtypes = (
-        [vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i32, i32, i32, i32, vp]
-        if api == "planes" else
-        [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i32, i32, i32, i32, vp])
+    lib.gf_repair_tick.argtypes = {
+        "planes": [vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i32, i32, i32, i32, vp],
+        "rows": [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i64, i64, i32, i32, i32, i32, vp],
+        "window": [vp] * 6 + [i32] * 7 + [i64] * 4 + [i32] * 4 + [vp]}[api]
     lib.gf_repair_tick.restype = i32
     return lib
 
@@ -106,7 +109,7 @@ def first_decodable_loss(code, seed: int) -> list[int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True, help="the earlier gf_tick.cu")
-    ap.add_argument("--old-api", choices=("planes", "rows"), default="planes",
+    ap.add_argument("--old-api", choices=("planes", "rows", "window"), default="planes",
                     help="the earlier repair tick's C interface")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=5)
@@ -161,11 +164,16 @@ def main() -> int:
                 rc = old.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), c["old_local"].data_ptr(),
                                         outs["old"].data_ptr(), bp.data_ptr(), L, h, 1, rows,
                                         Bp, S, t, NUM_CHUNKS, lo, count, stream)
-            else:
+            elif args.old_api == "rows":
                 rc = old.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), shards_p.data_ptr(),
                                         outs["old"].data_ptr(), c["tables"].data_ptr(),
                                         c["rows_table"].ctypes.data, L, h, 1, rows, Bp, S, t,
                                         lo, count, 1, stream)
+            else:
+                rc = old.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), shards_p.data_ptr(),
+                                        outs["old"].data_ptr(), c["tables"].data_ptr(),
+                                        c["rows_table"].ctypes.data, L, h, 1, 1, 0, NUM_CHUNKS,
+                                        rows, Bp, S, Bp, Bp, t, lo, count, 1, stream)
             if rc:
                 raise RuntimeError(f"old repair_tick: CUDA error {rc}")
 
@@ -178,14 +186,14 @@ def main() -> int:
             rc = lib.gf_repair_tick(wi.data_ptr(), wo.data_ptr(), shards_p.data_ptr(),
                                     outs["new_direct"].data_ptr(), c["tables"].data_ptr(),
                                     c["rows_table"].ctypes.data, L, h, 1, 1, 0, NUM_CHUNKS,
-                                    rows, Bp, S, Bp, Bp, t, lo, count, 1, stream)
+                                    rows, Bp, S, Bp, Bp, t, lo, count, 1, 0, stream)
             if rc:
                 raise RuntimeError(f"repair_tick: CUDA error {rc}")
 
         runs = {"old": ticks(h, (h, 1, rows, S), dev, old_tick),
                 "new": ticks(h, (h, 1, rows, S), dev, new_tick)}
         turns = ("old", "new", "new", "old")
-        if args.old_api == "rows":
+        if args.old_api != "planes":
             runs["new_direct"] = ticks(h, (h, 1, rows, S), dev, direct_tick)
             turns = ("old", "new", "new_direct", "new_direct", "new", "old")
         else:
