@@ -207,12 +207,26 @@ last line:
    the sequential stack within ``PP_FWD_TOL`` / ``PP_GRAD_TOL`` of each
    tensor's scale.
 
+20. Training over a device mesh, here 2 x 2 (data, model) of ``[cuda:0] *
+   4``: (a) qwen3-1.7b at full width and depth through
+   ``run_training(mesh=)`` (layout 2d: FSDP over data, tensor parallelism
+   over model, explicit collectives), phase 18's batch, seed and optimizer
+   for 3 steps, its losses within ``MESH_LOSS_TOL`` of phase 18's first
+   three; each position's share of the state checked against its specs'
+   blocks; the step walls, the peak and the ledger's collective bytes a
+   step (``launch.hlo``) over the NVLink rate; (b) whisper-base trained on
+   that mesh through a device-direct manager with a (4, 2) code (saves
+   from the mesh: the chain on its 4 positions), stopped, its step-4 save
+   restored onto a 1 x 2 mesh bit for bit, and a run resumed on the 1 x 2
+   mesh within ``TRAIN_RESUME_TOL`` of the unbroken run; its saves and
+   restores must launch ``chain_tick`` and ``repair_tick``.
+
 Then one JSON line with every kernel's numbers over all of the run's
 launches (the staggered launches of phase 8 in rows of their own;
 ``slice_launches``: each kernel's launches over phases 13-14's counted
 runs, every one of which must be above 0, over phase 15's soak, over
-phase 18's saves and restores and over phase 19's placed calls), and the
-device line.
+phase 18's saves and restores, over phase 19's placed calls and over phase
+20's mesh saves and restores), and the device line.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -226,6 +240,7 @@ import filecmp
 import hashlib
 import itertools
 import json
+import math
 import os
 import shutil
 import statistics
@@ -248,6 +263,7 @@ from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.admission import AdmissionConfig, AdmissionController  # noqa: E402
 from repro_torch.data import pipeline as data_pipeline  # noqa: E402
+from repro_torch.launch import hlo, roofline  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
@@ -360,6 +376,20 @@ PLACED_MANY = TICK_SHAPES[0]             # phase 9's (16 objects, 2^22 words a b
 PLACED_RESTORE_MESH = (2, 4)             # the elastic restore's 8 positions
 PP_STAGES, PP_MICRO = 4, 4
 PP_FWD_TOL, PP_GRAD_TOL = 1e-4, 1e-3
+# Phase 20: training over a (data, model) mesh of [cuda:0] * 4. (a) phase 18's
+# qwen3-1.7b run (same seed, data and optimizer) for its first 3 steps, its
+# losses held to phase 18's within MESH_LOSS_TOL, relative. The same
+# comparison in float32 (TF32 off) agrees within 7.7e-8 (the reduction order
+# alone), in bfloat16 within 1.6e-4 (tools/mesh_train_parity.py on the H100,
+# PERF.md): tensor-parallel partial sums are rounded to bfloat16 before they
+# are added. The bound leaves that spread a factor of 6. (b) whisper-base
+# through a device-direct manager whose (4, 2) code puts the save's chain on
+# the 2 x 2 mesh's 4 positions and the decode's 2 helpers on the 1 x 2 mesh it
+# resumes onto.
+MESH_SHAPE, MESH_RESUME_SHAPE = (2, 2), (1, 2)
+MESH_TRAIN_STEPS = 3
+MESH_LOSS_TOL = 1e-3
+MESH_CKPT_NK = (4, 2)
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -2587,11 +2617,12 @@ def train_args(cfg, steps: int, seed: int):
     return ocfg, dcfg
 
 
-def phase_train(dev, seed: int) -> dict:
+def phase_train(dev, seed: int) -> tuple[dict, list[float]]:
     """Phase 18: (a) qwen3-1.7b trained at full width and depth through
     ``launch.train.run_training`` with no checkpoint; (b) whisper-base trained
     through a device-direct ``CheckpointManager``, resumed from its step-4
-    save. Returns the kernels' launches over (b)'s saves and restores."""
+    save. Returns the kernels' launches over (b)'s saves and restores, and
+    (a)'s losses."""
     # (a) qwen3-1.7b
     cfg = get_config(TRAIN_ARCH)
     ocfg, dcfg = train_args(cfg, TRAIN_STEPS, seed)
@@ -2693,7 +2724,166 @@ def phase_train(dev, seed: int) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    return counts
+    return counts, losses
+
+
+# ---------------------------------------------------------------------------
+# phase 20: training over a device mesh
+# ---------------------------------------------------------------------------
+
+
+def state_shares(state: dict) -> tuple[list[int], list[int], int]:
+    """Per mesh position: the bytes of the blocks it holds over a state of
+    ``ShardedTensor``s, the bytes its spec says it should hold, and the
+    whole state's bytes. Checks every block is its spec's block in storage
+    of its own (a position holds that block and nothing more)."""
+    leaves = object_store.tree_flatten(
+        state, is_leaf=lambda x: isinstance(x, sharding.ShardedTensor))[0]
+    held = want = None
+    total = 0
+    for st in leaves:
+        if not isinstance(st, sharding.ShardedTensor):
+            continue
+        held = held or [0] * len(st.shards)
+        want = want or [0] * len(st.shards)
+        item = st.dtype.itemsize
+        total += int(np.prod(st.shape)) * item
+        for c, (block, shard) in enumerate(zip(st.blocks(), st.shards)):
+            size = int(np.prod([b.stop - b.start for b in block])) * item
+            check(tuple(shard.shape) == tuple(b.stop - b.start for b in block)
+                  and shard.untyped_storage().nbytes() == size,
+                  f"position {c} holds its block of {st} alone")
+            held[c] += shard.numel() * item
+            want[c] += size
+    return held, want, total
+
+
+def phase_mesh_train(dev, seed: int, want_losses: list[float]) -> dict:
+    """Phase 20: (a) qwen3-1.7b trained at full width and depth over a 2 x 2
+    (data, model) mesh of [dev] * 4 through ``run_training(mesh=)``, held to
+    phase 18's first losses; (b) whisper-base trained on that mesh through a
+    device-direct manager, saved from the mesh and resumed onto a 1 x 2
+    mesh. Returns the kernels' launches over (b)."""
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    ocfg, dcfg = train_args(cfg, TRAIN_STEPS, seed)
+    mesh = mesh_lib.make_local_mesh(*MESH_SHAPE, devices=[dev] * math.prod(MESH_SHAPE))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_launch.run_training(cfg, ocfg, dcfg, MESH_TRAIN_STEPS, mesh=mesh, log_every=1,
+                                    log=lambda *_: None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = kernel.launch_counts()
+    losses = [h["loss"] for h in out["history"]]
+    walls = out["step_s"]
+    want = want_losses[:MESH_TRAIN_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    check(len(losses) == MESH_TRAIN_STEPS and all(np.isfinite(losses)) and rel <= MESH_LOSS_TOL,
+          f"sharded losses {losses} vs phase 18's {want}: relative {rel:.3g}")
+    check(counts == dict.fromkeys(counts, 0), f"training launched GF kernels: {counts}")
+    held, should, total = state_shares({"params": out["params"], "opt": out["opt"]})
+    check(held == should, f"positions hold {held} bytes, their specs {should}")
+    stats = hlo.collective_bytes(out["collectives"])
+    by_op = {op: int(b) for op, b in sorted(stats.per_op.items())}
+    n_ops = dict(sorted(stats.count.items()))
+    del out
+    torch.cuda.empty_cache()
+    print(f"mesh training: {TRAIN_ARCH} at full width and depth over a "
+          f"{'x'.join(map(str, MESH_SHAPE))} (data, model) mesh of [{dev}] x {mesh.size}, "
+          f"layout 2d (FSDP over data, tensor parallel over model), phase 18's batch, seed and "
+          f"optimizer: {MESH_TRAIN_STEPS} steps in {wall:.3f} s (init and placement included), "
+          f"step walls {[round(w, 4) for w in walls]} s (phase 18 one device: first 3 losses "
+          f"{[round(x, 5) for x in want]}), losses {[round(x, 5) for x in losses]}, largest "
+          f"relative difference {rel:.3g} (bound {MESH_LOSS_TOL}); peak {peak / 2**30:.3f} GiB "
+          f"above what was allocated before; each position holds "
+          f"{[round(h / total, 4) for h in held]} of the {total} state bytes (its spec's "
+          f"blocks, nothing more); collectives a step (ledger): {n_ops} ops, per-device link "
+          f"bytes {by_op}, total {int(stats.total_bytes)} = {stats.total_bytes / roofline.ICI_BW * 1e3:.3f} ms "
+          f"at the NVLink rate {roofline.ICI_BW:.3g} B/s; GF kernel launches {counts} "
+          f"({smi('name,power.limit')})")
+
+    # (b) whisper-base through a device-direct manager, saved from the mesh
+    wcfg = get_config(WHISPER_ARCH)
+    wocfg, wdcfg = train_args(wcfg, CKPT_TRAIN_STEPS, seed)
+    resume_mesh = mesh_lib.make_local_mesh(*MESH_RESUME_SHAPE,
+                                           devices=[dev] * math.prod(MESH_RESUME_SHAPE))
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh-")
+    n, k = MESH_CKPT_NK
+
+    def manager_at(name: str) -> manager.CheckpointManager:
+        return manager.CheckpointManager(manager.CheckpointConfig(
+            root=os.path.join(root, name), n=n, k=k, l=L, seed=seed, device_direct=True),
+            device=dev)
+
+    def train(n_steps: int, m, mgr, log=lambda *_: None):
+        t = time.perf_counter()
+        o = train_launch.run_training(wcfg, wocfg, wdcfg, n_steps, mesh=m, ckpt=mgr,
+                                      save_every=CKPT_SAVE_EVERY, log_every=1, log=log)
+        return o, time.perf_counter() - t
+
+    try:
+        kernel.reset_launch_counts()
+        full, full_s = train(CKPT_TRAIN_STEPS, mesh, manager_at("unbroken"))
+        del full["params"], full["opt"]
+        crash = manager_at("resumed")
+        first, first_s = train(CKPT_SAVE_EVERY, mesh, crash)
+        saved = {"params": first["params"], "opt": first["opt"],
+                 "step": np.int64(CKPT_SAVE_EVERY)}
+        like = {"params": lm.init(0, wcfg, device="meta"), "step": np.int64(0)}
+        like["opt"] = adamw.init_opt(like["params"], wocfg)
+        shardings = sharding.state_shardings(wcfg, resume_mesh, like, wocfg)
+        t = time.perf_counter()
+        got = crash.restore_sharded(CKPT_SAVE_EVERY, saved, mesh=resume_mesh)
+        got = {"params": devio.place(got["params"], shardings["params"]),
+               "opt": devio.place(got["opt"], shardings["opt"]), "step": got["step"]}
+        restore_s = time.perf_counter() - t
+        check(leaves_equal(train_launch._whole(got), train_launch._whole(saved)),
+              f"step {CKPT_SAVE_EVERY} restored onto the {MESH_RESUME_SHAPE} mesh == the saved "
+              f"sharded state, bit for bit")
+        check(all(x.placement.mesh == resume_mesh for x in object_store.tree_flatten(
+            got, is_leaf=lambda x: isinstance(x, sharding.ShardedTensor))[0]
+            if isinstance(x, sharding.ShardedTensor)), "restored leaves on the resume mesh")
+        del got, saved, first
+        torch.cuda.empty_cache()
+        lines: list[str] = []
+        resumed, resumed_s = train(CKPT_TRAIN_STEPS, resume_mesh, crash, lines.append)
+        wcounts = kernel.launch_counts()
+        check(lines[0].startswith(f"resuming from checkpoint step {CKPT_SAVE_EVERY} "),
+              f"the second run resumed: {lines[0]!r}")
+        got_steps = [h["step"] for h in resumed["history"]]
+        check(got_steps == list(range(CKPT_SAVE_EVERY, CKPT_TRAIN_STEPS)),
+              f"resumed steps {got_steps}")
+        want_w = [h["loss"] for h in full["history"][CKPT_SAVE_EVERY:]]
+        got_w = [h["loss"] for h in resumed["history"]]
+        wrel = max(abs(a - b) / abs(b) for a, b in zip(got_w, want_w))
+        check(all(np.isfinite(got_w)) and wrel <= TRAIN_RESUME_TOL,
+              f"resumed losses {got_w} vs unbroken {want_w}: relative {wrel:.3g}")
+        check(crash.steps() == [CKPT_SAVE_EVERY, CKPT_TRAIN_STEPS]
+              and all(crash.tier(s) == "archive" for s in crash.steps()),
+              f"coded steps {crash.steps()}")
+        check(wcounts["chain_tick"] > 0 and wcounts["repair_tick"] > 0,
+              f"mesh saves and restores launched the tick kernels: {wcounts}")
+        del resumed
+        print(f"mesh training through the checkpoint: {WHISPER_ARCH} at full width and depth "
+              f"on the {MESH_SHAPE} mesh, device-direct saves every {CKPT_SAVE_EVERY} steps "
+              f"from the mesh into ({n},{k}) GF(2^{L}) stores (the chain on the mesh's "
+              f"positions): unbroken {CKPT_TRAIN_STEPS} steps {full_s:.3f} s, "
+              f"{CKPT_SAVE_EVERY} steps then a stop {first_s:.3f} s, restore_sharded of step "
+              f"{CKPT_SAVE_EVERY} onto the {MESH_RESUME_SHAPE} mesh {restore_s:.3f} s (bit for "
+              f"bit), resumed on the {MESH_RESUME_SHAPE} mesh {resumed_s:.3f} s; losses "
+              f"{[round(x, 5) for x in got_w]} vs unbroken {[round(x, 5) for x in want_w]}, "
+              f"largest relative difference {wrel:.3g} (bound {TRAIN_RESUME_TOL}); GF kernel "
+              f"launches over the saves and restores {wcounts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return wcounts
 
 
 def main() -> int:
@@ -2718,7 +2908,7 @@ def main() -> int:
 
 
 def run_phases(dev, seed: int, pool) -> int:
-    """Phases 1-19, then the kernels line and the device line."""
+    """Phases 1-20, then the kernels line and the device line."""
     t_start = time.perf_counter()
 
     # -- phase 1: build ------------------------------------------------------
@@ -2931,12 +3121,15 @@ def run_phases(dev, seed: int, pool) -> int:
         phase_lm_serve(dev, seed, arch, dims, prompt)
 
     # -- phase 18: training, and a resume through the coded checkpoints ----------
-    train_launches = phase_train(dev, seed)
+    train_launches, train_losses = phase_train(dev, seed)
 
     # -- phase 19: chain positions and pipeline stages placed on mesh devices ----
     placed_launches = phase_placed(code, dev, seed, cw704_digests, pool, errs)
     check(all(placed_launches[name] > 0 for name in ("chain_tick", "repair_tick", "gf_encode")),
           f"phase 19's paths launched chain_tick, repair_tick and gf_encode: {placed_launches}")
+
+    # -- phase 20: training over a device mesh, saved from it and resumed ------
+    mesh_launches = phase_mesh_train(dev, seed, train_losses)
 
     rows = []
     for name, w in work.items():
@@ -2953,7 +3146,8 @@ def run_phases(dev, seed: int, pool) -> int:
             "slice_launches": {"phases 13-14": slice_launches.get(name),
                                "phase 15": live_launches.get(name),
                                "phase 18": train_launches.get(name),
-                               "phase 19": placed_launches.get(name)},
+                               "phase 19": placed_launches.get(name),
+                               "phase 20": mesh_launches.get(name)},
             "bytes": w["bytes"], "ops": w["ops"], "int8_ops": w["int8_ops"],
         })
         report_work(name, w, "all paths")

@@ -29,7 +29,11 @@ reuse one program.
 
 A leaf is a device leaf when it is a ``torch.Tensor`` (a tensor on the
 ``meta`` device describes a layout with no data, as a
-``jax.ShapeDtypeStruct`` does); every other leaf (numpy arrays and scalars,
+``jax.ShapeDtypeStruct`` does) or a ``sharding.ShardedTensor`` (a state laid
+out over a training mesh: each distinct block is copied into its place in
+the blob from the device that holds it, never assembled on one device
+first, so the blob — and every coded shard — is that of the same state
+saved whole); every other leaf (numpy arrays and scalars,
 such as an ``np.int64`` step counter) is copied in from its host bytes, at
 the exact ``tree_to_bytes`` offset. A state whose modeled footprint passes
 a budget is serialized on the host and streamed through the card
@@ -87,15 +91,45 @@ def state_layout(state) -> StateLayout:
     """Layout for ``state`` (tensors, ``meta`` tensors as templates, numpy
     leaves). The prefix (and therefore the whole blob) is byte-identical to
     what ``tree_to_bytes`` writes for the same tree."""
-    leaves, treedef = obj.tree_flatten(state)
+    leaves, treedef = _flatten(state)
     metas = obj.leaf_metas(leaves)
     prefix = obj.tree_header(treedef, metas)
     body_len = (metas[-1]["offset"] + metas[-1]["nbytes"]) if metas else 0
-    device_leaf = tuple(isinstance(x, torch.Tensor) for x in leaves)
+    device_leaf = tuple(isinstance(x, (torch.Tensor, sharding.ShardedTensor)) for x in leaves)
     return StateLayout(
         treedef=treedef, metas=tuple(metas), prefix=prefix,
         blob_len=len(prefix) + body_len, device_leaf=device_leaf,
         key=(obj.digest(prefix), device_leaf))
+
+
+def _flatten(tree):
+    """(leaves, treedef) of a state whose leaves may be ``ShardedTensor``s."""
+    return obj.tree_flatten(tree, is_leaf=lambda x: isinstance(x, sharding.ShardedTensor))
+
+
+def _byte_rows(x, shape: tuple) -> torch.Tensor:
+    """A tensor's (or a blob region's) bytes as uint8 of ``shape`` with the
+    last dim counted in bytes, so a block's slice of it is a block of bytes."""
+    if x.ndim == 0 or not shape:
+        return x.reshape(-1)
+    return x.reshape(tuple(shape[:-1]) + (-1,))
+
+
+def _write_sharded(region: torch.Tensor, st: sharding.ShardedTensor) -> None:
+    """Each distinct block of ``st`` into ``region`` (the leaf's uint8 bytes
+    in the blob), copied from the device that holds it."""
+    item = st.dtype.itemsize
+    dest = _byte_rows(region, st.shape)
+    for block, shard, own in zip(st.blocks(), st.shards, st.owners()):
+        if not own:
+            continue
+        if not st.shape:
+            dest.copy_(shard.detach().reshape(1).view(torch.uint8))
+            continue
+        src = shard.detach().contiguous().view(torch.uint8)
+        last = block[-1]
+        idx = block[:-1] + (slice(last.start * item, last.stop * item),)
+        dest[idx] = _byte_rows(src, shard.shape).to(dest.device)
 
 
 def _leaf_u8(x: torch.Tensor) -> torch.Tensor:
@@ -157,7 +191,10 @@ def _build_save(code, layout: StateLayout, num_chunks: int, use_chain: bool,
         for leaf, meta, is_dev in zip(leaves, layout.metas, layout.device_leaf):
             if meta["nbytes"]:
                 a = plen + meta["offset"]
-                buf[a:a + meta["nbytes"]] = _leaf_u8(leaf) if is_dev else _host_u8(leaf)
+                if isinstance(leaf, sharding.ShardedTensor):
+                    _write_sharded(buf[a:a + meta["nbytes"]], leaf)
+                else:
+                    buf[a:a + meta["nbytes"]] = _leaf_u8(leaf) if is_dev else _host_u8(leaf)
         buf[layout.blob_len:] = 0
         blocks = buf.view(k, block_bytes)
         # the chain reads the blocks' int32 view in place (gf.pack_u32)
@@ -236,6 +273,8 @@ def _chain_mesh(mesh, n: int) -> DeviceMesh | None:
 
 
 def _place_leaf(a, target):
+    if isinstance(a, sharding.ShardedTensor):
+        a = a.full()
     x = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
     if isinstance(target, sharding.Placement):
         return sharding.shard(x, target)
@@ -249,7 +288,7 @@ def place(tree, shardings):
     ``sharding.ShardedTensor`` over the placement's mesh). The
     elastic-restart hook: a state restored anywhere resumes on the devices
     of the new run's mesh."""
-    leaves, treedef = obj.tree_flatten(tree)
+    leaves, treedef = _flatten(tree)
     target = (torch.device, str, sharding.Placement)
     if isinstance(shardings, target):
         targets = [shardings] * len(leaves)
@@ -322,7 +361,7 @@ def save_state(store, step: int, state, acfg: arc.ArchiveConfig,
     fn = jitcache.get(
         ("ckpt_save", code.cache_key, chain_mesh, use_chain, layout.key, B, nc, dev),
         lambda: _build_save(code, layout, nc, use_chain, B, dev, chain_mesh))
-    blocks, coded_w = fn(obj.tree_flatten(state)[0])
+    blocks, coded_w = fn(_flatten(state)[0])
     return arc.publish_device_archive(
         store, step, acfg, blocks.cpu().numpy(), arc._u8(coded_w.cpu().numpy()),
         layout.blob_len, state_key=layout.key[0])

@@ -137,7 +137,7 @@ class CheckpointManager:
         blob = obj.join_blocks(blocks, manifest["blob_len"])
         return obj.bytes_to_leaves(blob, like)
 
-    def restore_latest(self, like, sharded: bool = False):
+    def restore_latest(self, like, sharded: bool = False, **kwargs):
         """Newest restorable step (skips unrecoverable ones). Returns
         (step, state), or (None, None) when the store holds no checkpoints
         at all (a fresh run). When steps EXIST but none is restorable —
@@ -145,8 +145,13 @@ class CheckpointManager:
         the root, the available steps, and why each one failed, instead of
         silently restarting the run from scratch. ``sharded=True`` reads
         each step through ``restore_sharded`` (coded steps decode on the
-        manager's device) instead of ``restore`` (the host decode)."""
-        read = self.restore_sharded if sharded else self.restore
+        manager's device) instead of ``restore`` (the host decode);
+        ``kwargs`` (``mesh``, ``shardings``) go to ``restore_sharded``."""
+        if kwargs and not sharded:
+            raise ValueError("restore_latest: mesh / shardings need sharded=True")
+        def read(step, like):
+            return self.restore_sharded(step, like, **kwargs) if sharded else \
+                self.restore(step, like)
         steps = arc.list_steps(self.store)
         errors = []
         for step in reversed(steps):

@@ -2,10 +2,8 @@
 
 One module per assigned architecture (exact published dims) + a reduced
 ``smoke`` variant of the same family for CPU tests: the JAX package's
-``repro.configs``, field for field. The ``ssm``, ``hybrid`` and ``encdec``
-configs resolve here, but ``repro_torch.models.model.init`` raises for
-them until their layers are ported. (The JAX package's ``configs/shapes.py``
-comes with the analytic launch tools.)
+``repro.configs``, field for field. ``repro_torch.configs.shapes`` holds the
+assigned input shapes and their meta-device input specs.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
 """Activation-placement hint registry (import-cycle-free leaf module).
 
 Model code stays placement-agnostic: layers call ``hint(x, "act")`` at
-residual boundaries. With no hints installed — every run on one card —
-``hint`` is the identity. The API is the JAX package's (``repro.hints``),
-so a later multi-card slice can install a placement per site: an installed
-hint is a callable applied to the tensor.
+residual boundaries. With no hints installed ``hint`` is the identity. The
+API is the JAX package's (``repro.hints``); an installed hint is a callable
+applied to the value. ``repro_torch.train.sharding.set_activation_hints``
+installs one ``ActivationHint`` per site for a mesh: the sharded train step
+(``repro_torch.train.spmd``) passes its per-position activations through
+the same sites and the hint reshards them, while a plain tensor (a
+one-device run) passes through unchanged.
 
 ``scan_unroll`` / ``unrolled_scans`` keep the JAX package's cost-accounting
 flag. The port's layer loops are Python loops, so nothing reads it yet.

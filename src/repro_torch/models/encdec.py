@@ -80,15 +80,19 @@ def encdec_init(gen, cfg, dtype) -> Params:
     }
 
 
-def _enc_layer(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
-    h = L.rmsnorm(p["norm1"], x)
+def enc_attn(p: Params, cfg, h: torch.Tensor) -> torch.Tensor:
+    """The encoder's bidirectional self-attention of normed h (B,T,D)."""
     B, T, _ = h.shape
     H, Kh, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h @ p["attn"]["wq"]).reshape(B, T, H, Dh)
-    k = (h @ p["attn"]["wk"]).reshape(B, T, Kh, Dh)
-    v = (h @ p["attn"]["wv"]).reshape(B, T, Kh, Dh)
+    q = (h @ p["wq"]).reshape(B, T, H, Dh)
+    k = (h @ p["wk"]).reshape(B, T, Kh, Dh)
+    v = (h @ p["wv"]).reshape(B, T, Kh, Dh)
     o = L.chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + o.reshape(B, T, H * Dh) @ p["attn"]["wo"]
+    return o.reshape(B, T, H * Dh) @ p["wo"]
+
+
+def _enc_layer(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    x = x + enc_attn(p["attn"], cfg, L.rmsnorm(p["norm1"], x))
     return x + L.mlp(p["mlp"], L.rmsnorm(p["norm2"], x))
 
 

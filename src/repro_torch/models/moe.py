@@ -39,13 +39,20 @@ def expert_capacity(seq: int, n_experts: int, top_k: int,
     return max(8, int(np.ceil(c / 8)) * 8)
 
 
-def moe_forward(p: Params, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B,S,D) -> (out (B,S,D), aux_loss scalar)."""
+def moe_rows(cfg, x: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) as the rows that dispatch apart: windows of
+    ``moe_seq_chunk`` tokens when the sequence splits into them."""
     B, S, D = x.shape
     chunk = getattr(cfg, "moe_seq_chunk", 0)
     if chunk and S > chunk and S % chunk == 0:
-        out, aux = moe_forward(p, cfg, x.reshape(B * (S // chunk), chunk, D))
-        return out.reshape(B, S, D), aux
+        return x.reshape(B * (S // chunk), chunk, D)
+    return x
+
+
+def route(p: Params, cfg, x: torch.Tensor):
+    """Top-k routing of rows x (B,S,D): returns (dispatch (B,S,E,C),
+    combine (B,S,E,C), probs (B,S,E), onehot (B,S,K,E)), float32."""
+    B, S, D = x.shape
     E, K = cfg.n_experts, cfg.moe_top_k
     C = expert_capacity(S, E, K, cfg.capacity_factor)
 
@@ -71,15 +78,36 @@ def moe_forward(p: Params, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     slot_onehot = F.one_hot(slot, C).to(F32) * in_cap[..., None].to(F32)   # (B,S,K,E,C)
     dispatch = slot_onehot.sum(dim=2)                                       # (B,S,E,C)
     combine = (slot_onehot * gate_vals[..., None, None] * onehot[..., None]).sum(dim=2)
+    return dispatch, combine, probs, onehot
 
+
+def experts(p: Params, x: torch.Tensor, dispatch: torch.Tensor,
+            combine: torch.Tensor) -> torch.Tensor:
+    """The experts of ``p`` (a leading E axis, matching dispatch's) over
+    their routed tokens; the combined output (B,S,D) in float32."""
     xin = torch.einsum("bsd,bsec->becd", x.to(F32), dispatch).to(x.dtype)  # (B,E,C,D)
     h = silu(torch.einsum("becd,edf->becf", xin, p["wg"])) * \
         torch.einsum("becd,edf->becf", xin, p["wi"])
     eo = torch.einsum("becf,efd->becd", h, p["wo"])
-    out = torch.einsum("becd,bsec->bsd", eo.to(F32), combine)
+    return torch.einsum("becd,bsec->bsd", eo.to(F32), combine)
 
-    # load-balancing aux loss (Switch style): E * sum_e f_e * P_e
+
+def load_stats(probs: torch.Tensor, onehot: torch.Tensor):
+    """(f_e, P_e): each expert's share of primary routes and its mean router
+    probability, averaged over the rows."""
+    S = probs.shape[1]
     f_e = torch.mean(onehot[:, :, 0].sum(dim=1) / S, dim=0)
     P_e = torch.mean(probs, dim=(0, 1))
-    aux = E * torch.sum(f_e * P_e)
-    return out.to(x.dtype), aux
+    return f_e, P_e
+
+
+def moe_forward(p: Params, cfg, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,D) -> (out (B,S,D), aux_loss scalar)."""
+    rows = moe_rows(cfg, x)
+    dispatch, combine, probs, onehot = route(p, cfg, rows)
+    out = experts(p, rows, dispatch, combine)
+
+    # load-balancing aux loss (Switch style): E * sum_e f_e * P_e
+    f_e, P_e = load_stats(probs, onehot)
+    aux = cfg.n_experts * torch.sum(f_e * P_e)
+    return out.reshape(x.shape).to(x.dtype), aux

@@ -79,10 +79,14 @@ def init_opt(params: Params, ocfg: OptConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8 quantization. Returns (q, scale)."""
+def quantize_int8(x: torch.Tensor, amax: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization. Returns (q, scale). ``amax``:
+    the whole tensor's max |x| when ``x`` is one block of it."""
     xf = x.to(F32)
-    scale = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+    if amax is None:
+        amax = xf.abs().max()
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q.to(torch.int8), scale
 
@@ -136,21 +140,88 @@ def apply_update(params: Params, grads: Params, state: dict,
     else:
         used = [g for _, g, *_ in leaves]
     gnorm = _norm(used)
-    scale = torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    b1, b2 = ocfg.b1, ocfg.b2
-    bc1 = 1 - b1 ** count.to(F32)
-    bc2 = 1 - b2 ** count.to(F32)
+    scale = _clip_scale(ocfg, gnorm)
+    bc1, bc2 = _corrections(ocfg, count)
     for (p, _, m, v, *_), g in zip(leaves, used):
-        g = g.to(F32) * scale
-        m32 = b1 * m.to(F32) + (1 - b1) * g
-        v32 = b2 * v.to(F32) + (1 - b2) * torch.square(g)
-        step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + ocfg.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
-            step = step + ocfg.weight_decay * p.to(F32)
-        p.copy_(p.to(F32) - lr * step)
-        m.copy_(m32)
-        v.copy_(v32)
+        _adam_leaf(ocfg, p, g, m, v, lr, scale, bc1, bc2, decay=p.ndim >= 2)
     new_state = {"m": state["m"], "v": state["v"], "count": count}
     if ocfg.compress_grads:
         new_state["err"] = state["err"]
     return params, new_state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _clip_scale(ocfg: OptConfig, gnorm: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(ocfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+
+
+def _corrections(ocfg: OptConfig, count: torch.Tensor):
+    return 1 - ocfg.b1 ** count.to(F32), 1 - ocfg.b2 ** count.to(F32)
+
+
+def _adam_leaf(ocfg: OptConfig, p, g, m, v, lr, scale, bc1, bc2, decay: bool) -> None:
+    """One leaf's (or block's) AdamW update, written in place; ``decay``:
+    the decoupled weight decay of matrices (the global leaf's ndim >= 2)."""
+    b1, b2 = ocfg.b1, ocfg.b2
+    g = g.to(F32) * scale
+    m32 = b1 * m.to(F32) + (1 - b1) * g
+    v32 = b2 * v.to(F32) + (1 - b2) * torch.square(g)
+    step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + ocfg.eps)
+    if decay:
+        step = step + ocfg.weight_decay * p.to(F32)
+    p.copy_(p.to(F32) - lr * step)
+    m.copy_(m32)
+    v.copy_(v32)
+
+
+@torch.no_grad()
+def apply_update_sharded(params: Params, grads: Params, state: dict, ocfg: OptConfig,
+                         grid) -> tuple[Params, dict, dict]:
+    """``apply_update`` over a mesh, block by block and in place.
+
+    ``params`` and the state are trees of ``sharding.ShardedTensor``s
+    (``count`` replicated), ``grads`` the same tree with each leaf a list of
+    per-position gradient blocks, each copy of a replicated block holding
+    the whole gradient; ``grid`` is the mesh's ``spmd.Grid``. The global
+    norm sums each element once (the blocks' owners, ``ShardedTensor.owners``)
+    and all-reduces the sum over the mesh; ``compress_grads``' per-tensor
+    scale is the whole leaf's max (an all-max over the blocks); the weight
+    decay keys on the global leaf's ndim. Returns the position-0 lr and norm."""
+    n = grid.n
+    counts = [c + 1 for c in state["count"].shards]
+    lrs = [lr_at(ocfg, c) for c in counts]
+    errs = [state["err"]] if ocfg.compress_grads else []
+    leaves = _zip(params, grads, state["m"], state["v"], *errs)
+    if ocfg.compress_grads:
+        used = []
+        for p, g, _, _, e in leaves:
+            targets = [gc.to(F32) + ec.to(F32) for gc, ec in zip(g, e.shards)]
+            axes = tuple(a for entry in p.placement.spec
+                         for a in ((entry,) if isinstance(entry, str) else entry or ()))
+            amax = grid.all_max([t.abs().max() for t in targets], axes)
+            hats = []
+            for t, a, ec in zip(targets, amax, e.shards):
+                g_hat = dequantize_int8(*quantize_int8(t, a))
+                ec.copy_((t - g_hat).to(ec.dtype))
+                hats.append(g_hat)
+            used.append(hats)
+    else:
+        used = [g for _, g, *_ in leaves]
+    sq = []
+    for c in range(n):
+        mine = [torch.sum(torch.square(g[c].to(F32)))
+                for (p, *_), g in zip(leaves, used) if p.owners()[c]]
+        sq.append(torch.sum(torch.stack(mine)) if mine else
+                  torch.zeros((), dtype=F32, device=grid.devices[c]))
+    gnorms = [torch.sqrt(t) for t in grid.all_reduce(sq, grid.names)]
+    for c in range(n):
+        scale = _clip_scale(ocfg, gnorms[c])
+        bc1, bc2 = _corrections(ocfg, counts[c])
+        for (p, _, m, v, *_), g in zip(leaves, used):
+            _adam_leaf(ocfg, p.shards[c], g[c], m.shards[c], v.shards[c], lrs[c], scale,
+                       bc1, bc2, decay=p.ndim >= 2)
+    cnt = state["count"]
+    new_state = {"m": state["m"], "v": state["v"],
+                 "count": type(cnt)(cnt.placement, cnt.shape, cnt.dtype, counts)}
+    if ocfg.compress_grads:
+        new_state["err"] = state["err"]
+    return params, new_state, {"lr": lrs[0], "grad_norm": gnorms[0]}

@@ -24,11 +24,18 @@ multi-pod. Conventions (Megatron + FSDP hybrid):
 Divisibility is always checked; non-divisible dims stay unsharded.
 
 ``chain_order`` draws the erasure-coded checkpoint's chain from the mesh
-(``repro_torch.checkpoint.devio``), and ``state_shardings`` gives each leaf
-of a train state a ``Placement`` (mesh, spec), which ``shard`` (and
-``devio.place``) turns into a ``ShardedTensor``: the leaf's blocks on the
-mesh's devices, as ``jax.device_put`` with a ``NamedSharding`` lays out a
-global array in one process.
+(``repro_torch.checkpoint.devio``), and ``state_shardings`` /
+``param_shardings`` give each leaf a ``Placement`` (mesh, spec), which
+``shard`` (and ``devio.place``) turns into a ``ShardedTensor``: the leaf's
+blocks on the mesh's devices, as ``jax.device_put`` with a ``NamedSharding``
+lays out a global array in one process.
+
+``set_activation_hints`` installs an ``ActivationHint`` per hint site of the
+model code (``repro_torch.hints``): the placement of the activations
+between layers. The sharded train step (``repro_torch.train.spmd``) carries
+its activations as per-position blocks, and a hint reshards them onto its
+spec, as ``with_sharding_constraint`` does under GSPMD; a plain tensor (a
+one-device run) passes through unchanged.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import hints as hints_lib
 from repro_torch.launch.mesh import DeviceMesh
 
 STACKED_TOPS = ("layers", "enc_layers", "dec_layers")
@@ -88,6 +96,45 @@ def _map_with_path(fn, tree, path: tuple[str, ...] = ()):
     if isinstance(tree, (list, tuple)) and not isinstance(tree, Spec):
         return type(tree)(_map_with_path(fn, v, path + (f"[{i}]",)) for i, v in enumerate(tree))
     return fn("/".join(path), tree)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+
+class ActivationHint(NamedTuple):
+    """An installed hint: where a site's activation lives on the mesh.
+
+    Called on a plain tensor (a one-device run) it returns the tensor; on a
+    sharded activation (``repro_torch.train.spmd.Dist``) it reshards the
+    blocks onto its spec (``Dist.constrain``), the counterpart of
+    ``jax.lax.with_sharding_constraint``."""
+    placement: "Placement"
+
+    def __call__(self, x):
+        if isinstance(x, torch.Tensor):
+            return x
+        return x.constrain(self.placement.spec)
+
+
+def set_activation_hints(mesh, *, batch: int | None = None, seq_shard: bool = False,
+                         layout: str = "2d") -> None:
+    """Install an ``ActivationHint`` per site for this mesh (see
+    ``repro_torch.hints``): ``act`` (B, S, D), ``logits`` (B, S, V) and
+    ``logits2d`` (B, V). ``batch``: the global batch of the step; a batch
+    the data axes do not divide stays whole. ``seq_shard`` splits the
+    activations' S over ``model`` between layers (sequence parallelism);
+    ``layout="fsdp"`` keeps V whole."""
+    dp = data_axes(mesh, layout)
+    dps = _size(mesh, dp)
+    bdim = dp if (batch is None or batch % dps == 0) else None
+    sdim = "model" if (seq_shard and layout != "fsdp") else None
+    vdim = "model" if layout != "fsdp" else None
+    specs = {"act": Spec(bdim, sdim, None), "logits": Spec(bdim, None, vdim),
+             "logits2d": Spec(bdim, vdim)}
+    hints_lib.set_hints({site: ActivationHint(Placement(mesh, spec))
+                         for site, spec in specs.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +229,13 @@ def layer_param_specs(cfg, mesh, layer_shape, layout: str = "2d") -> dict:
                           layer_shape)
 
 
+def param_shardings(cfg, mesh: DeviceMesh, params_shape, layout: str = "2d") -> dict:
+    """A ``Placement`` per parameter leaf (the JAX package's tree of
+    ``NamedSharding``s)."""
+    return _map_with_path(lambda _, spec: Placement(mesh, spec),
+                          param_specs(cfg, mesh, params_shape, layout))
+
+
 def opt_specs(cfg, mesh, pspecs, ocfg=None) -> dict:
     """Optimizer state mirrors parameter sharding; count is replicated.
     The int8-compression error-feedback buffer (when enabled) mirrors the
@@ -256,7 +310,7 @@ def _blocks(shape: tuple[int, ...], placement: Placement) -> list[tuple[slice, .
         coord = dict(zip(mesh.axis_names, np.unravel_index(c, dims)))
         idx = []
         for d, e in zip(shape, entries):
-            axes = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+            axes = spec_axes(e)
             parts = math.prod(mesh.shape[a] for a in axes)
             if d % parts:
                 raise ValueError(f"dim {d} of {shape} does not split {parts} ways ({spec})")
@@ -271,14 +325,27 @@ def _blocks(shape: tuple[int, ...], placement: Placement) -> list[tuple[slice, .
 
 class ShardedTensor:
     """A tensor laid out over a mesh: ``shards[c]`` is the block that mesh
-    device c (row-major) holds, on that device. A block on the tensor's own
-    device is a view of it; another device's is a copy."""
+    device c (row-major) holds, on that device, in storage of its own."""
 
     def __init__(self, placement: Placement, shape, dtype, shards):
         self.placement = placement
         self.shape = tuple(shape)
         self.dtype = dtype
         self.shards = list(shards)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def blocks(self) -> list[tuple[slice, ...]]:
+        """The global index of each position's block (row-major)."""
+        return _blocks(self.shape, self.placement)
+
+    def owners(self) -> list[bool]:
+        """True at the one position of each distinct block: its coordinate
+        is 0 on every mesh axis the spec does not split over. A sum over
+        the owners' blocks counts each element once."""
+        return owners(self.placement)
 
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor, assembled on ``device`` (default: the mesh's
@@ -293,12 +360,30 @@ class ShardedTensor:
         return f"ShardedTensor({self.shape}, {self.dtype}, {self.placement.spec})"
 
 
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name or a tuple of names)."""
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def owners(placement: Placement) -> list[bool]:
+    """Per mesh position (row-major): whether it holds the first copy of its
+    block, i.e. sits at coordinate 0 on every axis the spec leaves out."""
+    mesh, spec = placement
+    used = {a for e in spec for a in spec_axes(e)}
+    dims = tuple(mesh.shape.values())
+    free = [i for i, a in enumerate(mesh.axis_names) if a not in used]
+    return [all(np.unravel_index(c, dims)[i] == 0 for i in free) for c in range(mesh.size)]
+
+
 def shard(x: torch.Tensor, placement: Placement) -> ShardedTensor:
     """``x`` laid out over ``placement``'s mesh (``jax.device_put`` with a
-    ``NamedSharding``)."""
+    ``NamedSharding``): each position gets a copy of its block, so it holds
+    that block and nothing more of ``x``."""
     mesh = placement.mesh
-    shards = [x[block].to(dev) for block, dev in zip(_blocks(tuple(x.shape), placement),
-                                                      mesh.flat)]
+    shards = []
+    for block, dev in zip(_blocks(tuple(x.shape), placement), mesh.flat):
+        part = x[block]
+        shards.append(torch.empty(part.shape, dtype=x.dtype, device=dev).copy_(part))
     return ShardedTensor(placement, x.shape, x.dtype, shards)
 
 
