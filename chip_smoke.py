@@ -221,6 +221,31 @@ last line:
    mesh within ``TRAIN_RESUME_TOL`` of the unbroken run; its saves and
    restores must launch ``chain_tick`` and ``repair_tick``.
 
+21. Serving over the same 2 x 2 mesh, the cost model against the card, and
+   the dry-run: (a) qwen3-1.7b at full width and depth in bfloat16 through
+   ``spmd.build_sharded_prefill_step`` / ``build_sharded_serve_step`` in the
+   ``serve`` layout (weights stationary, tensor parallel only) and in
+   ``2d``: phase 16's prompts prefilled into a cache of 2048 + 16
+   positions (K/V split on the sequence over ``model``), 16 decode steps fed
+   the one-device run's greedy tokens, every step's logits within phase
+   16's bound (2e-2 of the logits' scale) of the one-device run's, each
+   position holding only its cache blocks; the prefill wall, the decode step
+   wall, the peak and a decode step's ledger bytes; a 2-layer full-width
+   copy in float32 (TF32 off), greedy on its own: the same tokens, logits
+   within 1e-4. (b) phase 20's training cell counted by
+   ``cost_model.measure`` on a 2 x 2 mesh of meta devices and around one
+   real step on the card: FLOPs, bytes accessed and ledger equal, the
+   ledger phase 20's bytes, the meta tracker's peak within 10% of
+   ``torch.cuda.max_memory_allocated``; the roofline's step time and MFU
+   (the traffic model's bytes) beside the measured median step wall, and
+   the same for (a)'s decode steps. (c) ``python -m
+   repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k --mesh
+   pod1`` on 256 meta positions in a subprocess: exit
+   0, its ``hbm_traffic_model`` equal to the committed
+   ``runs/dryrun/qwen3-1.7b__decode_32k__16x16.json``'s, its bytes a device
+   within the card's memory (the subprocess runs on a host core beside
+   phases 18-21). train_4k's dry-run is a listed cut.
+
 Then one JSON line with every kernel's numbers over all of the run's
 launches (the staggered launches of phase 8 in rows of their own;
 ``slice_launches``: each kernel's launches over phases 13-14's counted
@@ -237,6 +262,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import filecmp
+import gc
 import hashlib
 import itertools
 import json
@@ -263,7 +289,9 @@ from repro_torch.kernels.gf_encode import kernel, ops, ref  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.admission import AdmissionConfig, AdmissionController  # noqa: E402
 from repro_torch.data import pipeline as data_pipeline  # noqa: E402
-from repro_torch.launch import hlo, roofline  # noqa: E402
+from repro_torch import hints  # noqa: E402
+from repro_torch.configs import shapes  # noqa: E402
+from repro_torch.launch import cost_model, hlo, roofline, traffic_model  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
@@ -272,7 +300,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.storage import (archive, atomic, chain, lifecycle, multi,  # noqa: E402
                                  object_store, repair, serving, workload)
-from repro_torch.train import pipeline_parallel, sharding  # noqa: E402
+from repro_torch.train import pipeline_parallel, sharding, spmd  # noqa: E402
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet and
 # Hopper white paper): HBM3 bandwidth, the non-tensor INT32 rate
@@ -390,6 +418,24 @@ MESH_SHAPE, MESH_RESUME_SHAPE = (2, 2), (1, 2)
 MESH_TRAIN_STEPS = 3
 MESH_LOSS_TOL = 1e-3
 MESH_CKPT_NK = (4, 2)
+# Phase 21: (a) qwen3-1.7b served over the 2 x 2 mesh of [cuda:0] * 4 in the
+# "serve" layout (weights stationary, tensor parallel only) and in "2d" (FSDP
+# + tensor parallel): phase 16's batch and prompts, a prefill into a cache of
+# LM_PROMPT + MESH_NEW positions and MESH_NEW decode steps fed phase 16's
+# one-device greedy tokens, the logits held to the one-device run's by phase
+# 16's bfloat16 bound, LM_TOL x max(1, max |want|); a 2-layer full-width copy
+# in float32 (TF32 off), each run greedy on its own: the same tokens, logits
+# within MESH_F32_TOL. (b) phase 20's training cell counted on a 2 x 2 mesh
+# of meta devices and around one real step on the card: the FLOPs, bytes
+# accessed and ledger equal, the meta tracker's peak within MESH_PEAK_TOL of
+# the card's. (c) the dry-run CLI on 256 meta positions in a subprocess,
+# started when the phase starts.
+MESH_NEW = 16
+MESH_F32_LAYERS, MESH_F32_TOL = 2, 1e-4
+MESH_SERVE_LAYOUTS = ("serve", "2d")
+MESH_PEAK_TOL = 0.10
+DRYRUN_ARCH, DRYRUN_SHAPE = "qwen3-1.7b", "decode_32k"
+DRYRUN_TIMEOUT_S = 600
 REPLACES = {
     "chain_tick": "src/repro/kernels/gf_encode/kernel.py:115",
     "repair_tick": "src/repro/kernels/gf_encode/kernel.py:164",
@@ -2883,7 +2929,297 @@ def phase_mesh_train(dev, seed: int, want_losses: list[float]) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
-    return wcounts
+    return wcounts, stats.total_bytes
+
+
+# ---------------------------------------------------------------------------
+# phase 21: serving over a mesh, the cost model against the card, the dry-run
+# ---------------------------------------------------------------------------
+
+
+def start_dryrun(out_dir: str) -> tuple[subprocess.Popen, float]:
+    """The dry-run CLI on 256 meta positions, in a subprocess that sees no
+    card (it needs none)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+           "--shape", DRYRUN_SHAPE, "--mesh", "pod1", "--out", out_dir]
+    return subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), time.perf_counter()
+
+
+def scale_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, the bound's scale max(1, max |want|))."""
+    return (got.float() - want.float()).abs().max().item(), max(1.0, want.abs().max().item())
+
+
+def mesh_serve_run(cfg, params, prompts, tokens, mesh, layout: str):
+    """Prefill ``prompts`` into a cache of LM_PROMPT + MESH_NEW positions over
+    ``mesh`` in ``layout``, then MESH_NEW decode steps fed ``tokens`` (None:
+    each step's own greedy token). Returns (logits per step on the host,
+    tokens, prefill s, decode s a step, peak bytes, the cache, the last
+    decode step's ledger records)."""
+    with hints.hints_installed({}):
+        sharding.set_activation_hints(mesh, batch=prompts.shape[0], layout=layout)
+        placed = spmd._tree_map2(sharding.shard, params,
+                                 sharding.param_shardings(cfg, mesh, params, layout))
+        prefill = spmd.build_sharded_prefill_step(cfg, mesh, layout)
+        serve_step = spmd.build_sharded_serve_step(cfg, mesh, layout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(placed, {"tokens": prompts}, LM_PROMPT + MESH_NEW)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [logits.full()]
+        got_tokens = []
+        token = torch.argmax(out[0], -1).to(torch.int32)[:, None] if tokens is None else \
+            tokens[0]
+        t0 = time.perf_counter()
+        for i in range(MESH_NEW):
+            nxt, logits, cache = serve_step(placed, cache, token, LM_PROMPT + i)
+            out.append(logits.full())
+            got_tokens.append(nxt.full())
+            token = nxt if tokens is None else tokens[i + 1]
+        torch.cuda.synchronize()
+        decode_s = (time.perf_counter() - t0) / MESH_NEW
+        records = list(serve_step.ledger.records)
+    del placed
+    return ([t.cpu() for t in out], [t.cpu() for t in got_tokens], prefill_s, decode_s, cache,
+            records)
+
+
+def one_device_run(cfg, params, prompts):
+    """The one-device prefill and MESH_NEW greedy decode steps: (logits per
+    step on the host, the greedy tokens fed to each step)."""
+    cast = lm.cast_params(params, cfg)
+    logits, cache = lm.prefill(cast, cfg, prompts)
+    cache = lm.extend_cache(cache, LM_PROMPT + MESH_NEW)
+    out, tokens = [logits], [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    for i in range(MESH_NEW):
+        logits, cache = lm.decode_step(cast, cfg, cache, tokens[-1], LM_PROMPT + i)
+        out.append(logits)
+        tokens.append(torch.argmax(logits, -1).to(torch.int32)[:, None])
+    del cast, cache
+    return [t.cpu() for t in out], tokens
+
+
+def roofline_share(name: str, cfg, flops: float, coll: float, shape_name: str, mesh_axes: dict,
+                   wall_s: float) -> str:
+    """The roofline of a counted step (its FLOPs and ledger, the traffic
+    model's fused bytes) beside the measured wall, as a line."""
+    sh = shapes.SHAPES[shape_name]
+    n = math.prod(mesh_axes.values())
+    tokens = sh.batch * (sh.seq if sh.kind != "decode" else 1)
+    tm = traffic_model.traffic(cfg, shape_name, mesh_axes)
+    r = roofline.make_roofline(flops=flops, hbm_bytes=tm["total"], coll_bytes=coll,
+                               model_flops=roofline.model_flops_per_chip(
+                                   sh.kind, cfg.active_param_count(), tokens, n))
+    return (f"{name}: roofline per chip compute {r.compute_s * 1e3:.3f} ms, memory "
+            f"{r.memory_s * 1e3:.3f} ms (traffic model {tm['total']:.6g} B), collective "
+            f"{r.collective_s * 1e3:.3f} ms -> {r.bound}-bound, step_time_s "
+            f"{r.step_time_s:.6g}, MFU {r.mfu:.4%}; measured median wall {wall_s:.6g} s on "
+            f"[cuda:0] x {n}, share of the roofline {r.step_time_s / wall_s:.4%} (measured "
+            f"MFU {r.model_flops / (wall_s * roofline.PEAK_FLOPS):.4%})")
+
+
+def phase_mesh_serve(dev, seed: int, phase20_link_bytes: float, dry, dry_dir: str) -> None:
+    """Phase 21: (a) qwen3-1.7b served over a 2 x 2 mesh of [dev] * 4 in the
+    serve and 2d layouts against the one-device run; (b) phase 20's training
+    cell counted on meta devices and on the card; (c) the dry-run CLI on 256
+    meta positions: ``dry`` (``start_dryrun``'s process and start time,
+    writing into ``dry_dir``), started before phase 18."""
+    t_phase = time.perf_counter()
+    smi_line = smi("name,power.limit")
+    dry, t_dry = dry
+    kernel.reset_launch_counts()
+    cfg = get_config(LM_ARCH)
+    mesh = mesh_lib.make_local_mesh(*MESH_SHAPE, devices=[dev] * math.prod(MESH_SHAPE))
+
+    # (a) serving over the mesh, bfloat16 at full width and depth
+    params = lm.cast_params(lm.init(seed, cfg, device=dev), cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)        # phase 16's prompts
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev,
+                            dtype=torch.int32)
+    want, tokens = one_device_run(cfg, params, prompts)
+    torch.cuda.empty_cache()
+    decode_walls = {}
+    for layout in MESH_SERVE_LAYOUTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got, got_tokens, prefill_s, decode_s, cache, records = mesh_serve_run(
+            cfg, params, prompts, tokens, mesh, layout)
+        peak = torch.cuda.max_memory_allocated() - base
+        errs = [scale_err(g, w) for g, w in zip(got, want)]
+        worst = max(e / sc for e, sc in errs)
+        check(all(torch.isfinite(g).all() for g in got) and worst <= LM_TOL,
+              f"{layout}: sharded logits vs one device, largest max |diff| / scale {worst}")
+        same = sum(torch.equal(a, b.cpu()) for a, b in zip(got_tokens, tokens[1:]))
+        held, should, total = state_shares({"cache": cache})
+        check(held == should, f"{layout}: positions hold {held} cache bytes, specs {should}")
+        kspec = cache["k"].placement.spec
+        link = hlo.collective_bytes(records)
+        decode_walls[layout] = decode_s
+        print(f"mesh serving ({layout}): {LM_ARCH} at full width and depth, bfloat16, over "
+              f"a {'x'.join(map(str, MESH_SHAPE))} (data, model) mesh of [{dev}] x "
+              f"{mesh.size}: prefill {LM_BATCH} x {LM_PROMPT} tokens into a cache of "
+              f"{LM_PROMPT + MESH_NEW} positions {prefill_s * 1e3:.1f} ms wall, "
+              f"{MESH_NEW} decode steps fed the one-device greedy tokens "
+              f"{decode_s * 1e3:.2f} ms a step; logits vs the one-device run: largest "
+              f"max |diff| / max(1, max |want|) {worst:.4g} (bound {LM_TOL}); sharded "
+              f"greedy token = one-device in {same} of {MESH_NEW} steps; peak "
+              f"{peak / 2**30:.3f} GiB above what was allocated before; K/V spec "
+              f"{kspec} (sequence over model), each position holds "
+              f"{[round(h / total, 4) for h in held]} of the {total} cache bytes (its "
+              f"blocks, nothing more); a decode step's collectives (ledger) "
+              f"{dict(sorted(link.count.items()))} ops, "
+              f"{ {op: int(b) for op, b in sorted(link.per_op.items())} } link bytes, "
+              f"total {int(link.total_bytes)} ({smi_line})")
+        del got, cache
+        torch.cuda.empty_cache()
+    del params, want, tokens
+
+    # a 2-layer full-width copy in float32: greedy on its own, the same tokens
+    small = dataclasses.replace(cfg, n_layers=MESH_F32_LAYERS, compute_dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        p32 = lm.init(seed, small, device=dev)
+        want, tokens = one_device_run(small, p32, prompts)
+        for layout in MESH_SERVE_LAYOUTS:
+            got, got_tokens, *_ = mesh_serve_run(small, p32, prompts, None, mesh, layout)
+            err = max(scale_err(g, w)[0] for g, w in zip(got, want))
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(got_tokens, tokens[1:])),
+                  f"{layout}: float32 greedy tokens over the mesh == one device")
+            check(err <= MESH_F32_TOL, f"{layout}: float32 logits max |diff| {err}")
+            print(f"mesh serving ({layout}) in float32 (TF32 off), {MESH_F32_LAYERS} layers "
+                  f"at full width, each greedy on its own: the same {MESH_NEW} tokens, "
+                  f"logits max |diff| {err:.3g} (bound {MESH_F32_TOL})")
+        del p32, want, tokens
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    # (b) phase 20's training cell: meta counts against a real step's
+    ocfg, dcfg = train_args(cfg, TRAIN_STEPS, seed)
+    cell = "train_mesh_phase20"
+    shapes.SHAPES[cell] = shapes.ShapeSpec(cell, "train", TRAIN_SEQ, TRAIN_BATCH)
+    serve_cell = "decode_mesh_phase21"
+    shapes.SHAPES[serve_cell] = shapes.ShapeSpec(serve_cell, "decode", LM_PROMPT + MESH_NEW,
+                                                 LM_BATCH)
+    try:
+        meta_mesh = mesh_lib.make_local_mesh(*MESH_SHAPE,
+                                             devices=["meta"] * math.prod(MESH_SHAPE))
+        t0 = time.perf_counter()
+        gc.collect()
+        prog = cost_model.program(cfg, meta_mesh, cell, ocfg=ocfg)
+        start = sum(st.shards[0].numel() * st.shards[0].element_size() * meta_mesh.size
+                    for st in object_store.tree_flatten(prog.args, is_leaf=lambda x: isinstance(
+                        x, sharding.ShardedTensor))[0])
+        meta = cost_model.measure(prog.run, meta_mesh, start=start)
+        meta_s = time.perf_counter() - t0
+        del prog
+
+        params = lm.init(dcfg.seed, cfg, device=dev)
+        opt = adamw.init_opt(params, ocfg)
+        target = sharding.state_shardings(cfg, mesh, {"params": params, "opt": opt,
+                                                      "step": np.int64(0)}, ocfg)
+        state = {"params": devio.place(params, target["params"]),
+                 "opt": devio.place(opt, target["opt"])}
+        del params, opt
+        source = data_pipeline.make_source(dcfg, dev)
+        bspecs = sharding.batch_specs(cfg, mesh)
+        batches = [{k: sharding.shard(v.to(torch.int32), sharding.Placement(mesh, bspecs[k]))
+                    for k, v in data_pipeline.batch_for(cfg, source, i).items()}
+                   for i in range(MESH_TRAIN_STEPS + 1)]
+        step_fn = spmd.build_sharded_train_step(cfg, ocfg, mesh, "2d")
+        with hints.hints_installed({}):
+            sharding.set_activation_hints(mesh, batch=TRAIN_BATCH, layout="2d")
+
+            def step(i):
+                out = step_fn(state["params"], state["opt"], batches[i])
+                state["params"], state["opt"] = out[0], out[1]
+                return out, list(step_fn.ledger.records)
+            gc.collect()            # no garbage of the setup freed during the step
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            card = cost_model.measure(lambda: step(0), mesh, start=start)
+            torch.cuda.synchronize()
+            card_peak = torch.cuda.max_memory_allocated() - base + start
+            walls = []
+            for i in range(1, MESH_TRAIN_STEPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _ = step(i)
+                float(state["opt"]["count"].shards[0])       # the step's end on the card
+                walls.append(time.perf_counter() - t0)
+        del state, batches
+        torch.cuda.empty_cache()
+        check(card.cost == meta.cost, f"counts on the card {card.cost} == on meta "
+              f"{meta.cost}")
+        check(card.coll.summary() == meta.coll.summary(), "ledgers equal")
+        check(int(meta.coll.total_bytes) == int(phase20_link_bytes),
+              f"meta ledger {meta.coll.total_bytes} B == phase 20's {phase20_link_bytes}")
+        check(card.counter.peak == meta.counter.peak,
+              f"live-bytes tracker on the card {card.counter.peak} == on meta "
+              f"{meta.counter.peak}")
+        rel = abs(meta.counter.peak - card_peak) / card_peak
+        check(rel <= MESH_PEAK_TOL, f"meta peak {meta.counter.peak} vs the card's "
+              f"{card_peak}: {rel:.3g} apart")
+        med = statistics.median(walls)
+        print(f"cost model vs the card: phase 20's cell ({TRAIN_ARCH}, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens, 2 x 2, layout 2d) counted on [meta] x 4 in "
+              f"{meta_s:.1f} s and around one step on [{dev}] x 4: per device FLOPs "
+              f"{meta.cost.flops:.6g}, bytes accessed {meta.cost.hbm_bytes:.6g}, link bytes "
+              f"{meta.cost.coll_bytes:.6g} (equal on both; phase 20: "
+              f"{int(phase20_link_bytes)}); peak live bytes of the step (the state "
+              f"included) meta {meta.counter.peak} vs the card's {card_peak} "
+              f"(max_memory_allocated), {rel:.3%} apart (bound {MESH_PEAK_TOL:.0%}); step "
+              f"walls {[round(w, 4) for w in walls]} s ({smi_line})")
+        print(roofline_share("train step (phase 20's cell)", cfg, meta.cost.flops,
+                             meta.cost.coll_bytes, cell, dict(meta_mesh.shape), med))
+        for layout in MESH_SERVE_LAYOUTS:
+            dec = cost_model.measure(cost_model.program(
+                cfg, meta_mesh, serve_cell, layout=layout).run, meta_mesh)
+            print(roofline_share(f"decode step ({layout}, (a)'s cell)", cfg, dec.cost.flops,
+                                 dec.cost.coll_bytes, serve_cell, dict(meta_mesh.shape),
+                                 decode_walls[layout]) + f"; FLOPs {dec.cost.flops:.6g}")
+    finally:
+        del shapes.SHAPES[cell], shapes.SHAPES[serve_cell]
+    counts = kernel.launch_counts()
+    check(counts == dict.fromkeys(counts, 0), f"phase 21 launched GF kernels: {counts}")
+
+    # (c) the dry-run on 256 meta positions
+    t_wait = time.perf_counter()
+    out, _ = dry.communicate(timeout=DRYRUN_TIMEOUT_S)
+    dry_s = time.perf_counter() - t_dry
+    check(dry.returncode == 0, f"dry-run exit {dry.returncode}: {out[-3000:]}")
+    root = Path(__file__).resolve().parent
+    name = f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__16x16.json"
+    art = json.loads((Path(dry_dir) / name).read_text())
+    ref = json.loads((root / "runs" / "dryrun" / name).read_text())
+    check(art["hbm_traffic_model"] == ref["hbm_traffic_model"],
+          "dry-run traffic model == the committed JAX artifact's")
+    m, r = art["memory"], art["roofline"]
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    check(0 < m["total_per_device"] <= card_bytes,
+          f"dry-run bytes a device {m['total_per_device']} fit the card's {card_bytes}")
+    print(f"dry-run CLI ({DRYRUN_ARCH} x {DRYRUN_SHAPE} on 16 x 16 meta positions, a "
+          f"subprocess): exit 0 after {dry_s:.1f} s wall ({time.perf_counter() - t_wait:.1f} "
+          f"s of it waited for at the phase's end; placement {art['lower_s']} s, full-depth "
+          f"run {art['compile_s']} s, corrected {art['correct_s']} s); hbm_traffic_model == "
+          f"the committed artifact's (total {art['hbm_traffic_model']['total']:.6g} B); "
+          f"per device: arguments {m['argument_bytes']} B, outputs {m['output_bytes']}, "
+          f"temp {m['temp_bytes']}, alias {m['alias_bytes']}, peak {m['peak_bytes']}, "
+          f"total {m['total_per_device']} of the card's {card_bytes}; FLOPs "
+          f"{r['flops']:.6g}, link bytes {r['coll_bytes']:.6g}; roofline compute "
+          f"{r['compute_s'] * 1e3:.4f} ms, memory {r['memory_s'] * 1e3:.4f} ms, collective "
+          f"{r['collective_s'] * 1e3:.4f} ms -> {r['bound']}-bound, MFU {r['mfu']:.4%}")
+    print("cut: train_4k on 16 x 16 meta positions is not run (its full-depth run of 28 "
+          "layers on 256 positions takes well over the phase's budget)")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2908,7 +3244,7 @@ def main() -> int:
 
 
 def run_phases(dev, seed: int, pool) -> int:
-    """Phases 1-20, then the kernels line and the device line."""
+    """Phases 1-21, then the kernels line and the device line."""
     t_start = time.perf_counter()
 
     # -- phase 1: build ------------------------------------------------------
@@ -3120,16 +3456,31 @@ def run_phases(dev, seed: int, pool) -> int:
     for arch, (dims, prompt) in FAMILY_ARCHS.items():
         phase_lm_serve(dev, seed, arch, dims, prompt)
 
-    # -- phase 18: training, and a resume through the coded checkpoints ----------
-    train_launches, train_losses = phase_train(dev, seed)
+    # phase 21 (c)'s dry-run (about 3 minutes of one host core, no card) runs
+    # beside phases 18-21
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun-")
+    dry = start_dryrun(dry_dir)
+    try:
+        # -- phase 18: training, and a resume through the coded checkpoints ------
+        train_launches, train_losses = phase_train(dev, seed)
 
-    # -- phase 19: chain positions and pipeline stages placed on mesh devices ----
-    placed_launches = phase_placed(code, dev, seed, cw704_digests, pool, errs)
-    check(all(placed_launches[name] > 0 for name in ("chain_tick", "repair_tick", "gf_encode")),
-          f"phase 19's paths launched chain_tick, repair_tick and gf_encode: {placed_launches}")
+        # -- phase 19: chain positions and pipeline stages placed on mesh devices
+        placed_launches = phase_placed(code, dev, seed, cw704_digests, pool, errs)
+        check(all(placed_launches[name] > 0
+                  for name in ("chain_tick", "repair_tick", "gf_encode")),
+              f"phase 19's paths launched chain_tick, repair_tick and gf_encode: "
+              f"{placed_launches}")
 
-    # -- phase 20: training over a device mesh, saved from it and resumed ------
-    mesh_launches = phase_mesh_train(dev, seed, train_losses)
+        # -- phase 20: training over a device mesh, saved from it and resumed ----
+        mesh_launches, mesh_link_bytes = phase_mesh_train(dev, seed, train_losses)
+
+        # -- phase 21: serving over a mesh, the cost model against the card, the dry-run --
+        phase_mesh_serve(dev, seed, mesh_link_bytes, dry, dry_dir)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
 
     rows = []
     for name, w in work.items():

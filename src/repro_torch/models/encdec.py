@@ -50,7 +50,7 @@ def cross_kv(p: Params, cfg, enc_out: torch.Tensor):
     return k, v
 
 
-def cross_attn(p: Params, cfg, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def cross_attn(p: Params, cfg, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor, proj=None):
     """x (B,S,D) queries against fixed encoder K/V (B,T,H,Dh): a float32
     softmax over all T frames."""
     B, S, _ = x.shape
@@ -59,7 +59,7 @@ def cross_attn(p: Params, cfg, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     s = torch.einsum("bshd,bthd->bhst", q.to(F32), k.to(F32)) / np.sqrt(Dh)
     pr = torch.softmax(s, dim=-1)
     o = torch.einsum("bhst,bthd->bshd", pr, v.to(F32))
-    return o.reshape(B, S, H * Dh).to(x.dtype) @ p["wo"]
+    return L.out_proj(o.reshape(B, S, H * Dh).to(x.dtype), p["wo"], proj)
 
 
 def encdec_init(gen, cfg, dtype) -> Params:
@@ -80,7 +80,7 @@ def encdec_init(gen, cfg, dtype) -> Params:
     }
 
 
-def enc_attn(p: Params, cfg, h: torch.Tensor) -> torch.Tensor:
+def enc_attn(p: Params, cfg, h: torch.Tensor, proj=None) -> torch.Tensor:
     """The encoder's bidirectional self-attention of normed h (B,T,D)."""
     B, T, _ = h.shape
     H, Kh, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -88,7 +88,7 @@ def enc_attn(p: Params, cfg, h: torch.Tensor) -> torch.Tensor:
     k = (h @ p["wk"]).reshape(B, T, Kh, Dh)
     v = (h @ p["wv"]).reshape(B, T, Kh, Dh)
     o = L.chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return o.reshape(B, T, H * Dh) @ p["wo"]
+    return L.out_proj(o.reshape(B, T, H * Dh), p["wo"], proj)
 
 
 def _enc_layer(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:

@@ -310,13 +310,20 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
+def out_proj(a: torch.Tensor, w: torch.Tensor, proj=None) -> torch.Tensor:
+    """An output projection ``a @ w``, or ``proj(a, w)``: a tensor-parallel
+    caller computes its row-parallel partial product its own way
+    (``repro_torch.train.spmd``'s serving path: in float32)."""
+    return a @ w if proj is None else proj(a, w)
+
+
 def gqa_attn(p: Params, cfg, x: torch.Tensor, *, window,
-             mrope_pos=None, return_kv: bool = False):
+             mrope_pos=None, return_kv: bool = False, proj=None):
     B, S, _ = x.shape
     q, k, v = gqa_qkv(p, cfg, x, _positions(B, S, x.device), mrope_pos)
     o = chunked_attention(q, k, v, causal=True, window=window,
                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = out_proj(o.reshape(B, S, cfg.n_heads * cfg.head_dim), p["wo"], proj)
     if return_kv:
         return out, {"k": k, "v": v}
     return out
@@ -370,7 +377,7 @@ def _mla_latents(p, cfg, x, pos):
     return c, k_rope[:, :, 0, :]                               # (B,S,rd)
 
 
-def mla_attn(p: Params, cfg, x: torch.Tensor, return_kv: bool = False):
+def mla_attn(p: Params, cfg, x: torch.Tensor, return_kv: bool = False, proj=None):
     """Prefill MLA: latents expanded to per-head K/V, chunked attention."""
     B, S, _ = x.shape
     H, nd, rd, vd = cfg.n_heads, cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_dim
@@ -383,7 +390,7 @@ def mla_attn(p: Params, cfg, x: torch.Tensor, return_kv: bool = False):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)], dim=-1)
     o = chunked_attention(q, k, v, causal=True, window=None,
                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    out = o.reshape(B, S, H * vd) @ p["wo"]
+    out = out_proj(o.reshape(B, S, H * vd), p["wo"], proj)
     if return_kv:
         return out, {"c": c, "k_rope": k_rope}
     return out
@@ -432,5 +439,5 @@ def mlp_init(gen, d: int, f: int, dtype, lead: tuple[int, ...] = ()) -> Params:
     }
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+def mlp(p: Params, x: torch.Tensor, proj=None) -> torch.Tensor:
+    return out_proj(silu(x @ p["wg"]) * (x @ p["wi"]), p["wo"], proj)

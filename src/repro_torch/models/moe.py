@@ -15,7 +15,6 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, silu
 
@@ -49,6 +48,13 @@ def moe_rows(cfg, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 one-hot of ``idx`` over ``n`` classes, by the same ops on every
+    device (``F.one_hot`` reads the indices back to the host on the CPU, and
+    runs other ops on the card and on the meta device)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(F32)
+
+
 def route(p: Params, cfg, x: torch.Tensor):
     """Top-k routing of rows x (B,S,D): returns (dispatch (B,S,E,C),
     combine (B,S,E,C), probs (B,S,E), onehot (B,S,K,E)), float32."""
@@ -68,14 +74,14 @@ def route(p: Params, cfg, x: torch.Tensor):
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # position of each (token, k) within its expert's buffer, k = 0 first
-    onehot = F.one_hot(gate_idx, E).to(F32)                     # (B,S,K,E)
+    onehot = _one_hot(gate_idx, E)                              # (B,S,K,E)
     flat = onehot.permute(0, 2, 1, 3).reshape(B, K * S, E)
     pos_flat = torch.cumsum(flat, dim=1) - flat
     pos = pos_flat.reshape(B, K, S, E).permute(0, 2, 1, 3)
     in_cap = (pos < C) & (onehot > 0)                           # (B,S,K,E)
     slot = torch.where(in_cap, pos, 0).to(torch.int64)
 
-    slot_onehot = F.one_hot(slot, C).to(F32) * in_cap[..., None].to(F32)   # (B,S,K,E,C)
+    slot_onehot = _one_hot(slot, C) * in_cap[..., None].to(F32)   # (B,S,K,E,C)
     dispatch = slot_onehot.sum(dim=2)                                       # (B,S,E,C)
     combine = (slot_onehot * gate_vals[..., None, None] * onehot[..., None]).sum(dim=2)
     return dispatch, combine, probs, onehot

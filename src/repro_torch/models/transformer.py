@@ -107,11 +107,12 @@ def _ffn(p: Params, cfg, x: torch.Tensor):
     return L.mlp(p["mlp"], h), _zero(x)
 
 
-def _attn(p: Params, cfg, h: torch.Tensor, use_window: bool, mrope_pos, return_kv: bool):
+def _attn(p: Params, cfg, h: torch.Tensor, use_window: bool, mrope_pos, return_kv: bool,
+          proj=None):
     if cfg.mla:
-        return L.mla_attn(p["attn"], cfg, h, return_kv=return_kv)
+        return L.mla_attn(p["attn"], cfg, h, return_kv=return_kv, proj=proj)
     return L.gqa_attn(p["attn"], cfg, h, window=_window(cfg, use_window),
-                      mrope_pos=mrope_pos, return_kv=return_kv)
+                      mrope_pos=mrope_pos, return_kv=return_kv, proj=proj)
 
 
 def _hybrid_mix(p: Params, attn: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

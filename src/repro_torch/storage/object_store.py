@@ -111,28 +111,31 @@ def tree_flatten(tree, is_leaf=None) -> tuple[list, TreeDef]:
     scalars and Python numbers, and whatever ``is_leaf`` accepts; any other
     container raises TypeError."""
     leaves: list = []
-
-    def walk(x) -> TreeDef:
-        if x is None:
-            return TreeDef("none")
-        if _is_leaf(x) or (is_leaf is not None and is_leaf(x)):
-            leaves.append(x)
-            return TreeDef("leaf")
-        if type(x) is collections.OrderedDict:
-            keys = tuple(x)
-            return TreeDef("odict", keys, tuple(walk(x[k]) for k in keys))
-        if type(x) is dict:
-            keys = tuple(sorted(x))
-            return TreeDef("dict", keys, tuple(walk(x[k]) for k in keys))
-        if type(x) in (list, tuple):
-            return TreeDef("list" if type(x) is list else "tuple", (),
-                           tuple(walk(c) for c in x))
-        raise TypeError(f"cannot flatten a {type(x).__name__}: checkpoint trees are "
-                        f"dict / OrderedDict / list / tuple / None over tensors, "
-                        f"numpy arrays and numbers")
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves, is_leaf)
     return leaves, treedef
+
+
+def _walk(x, leaves: list, is_leaf) -> TreeDef:
+    """``tree_flatten``'s recursion, a module function: a closure that calls
+    itself is a reference cycle, and it would keep every leaf alive until
+    the garbage collector runs."""
+    if x is None:
+        return TreeDef("none")
+    if _is_leaf(x) or (is_leaf is not None and is_leaf(x)):
+        leaves.append(x)
+        return TreeDef("leaf")
+    if type(x) is collections.OrderedDict:
+        keys = tuple(x)
+        return TreeDef("odict", keys, tuple(_walk(x[k], leaves, is_leaf) for k in keys))
+    if type(x) is dict:
+        keys = tuple(sorted(x))
+        return TreeDef("dict", keys, tuple(_walk(x[k], leaves, is_leaf) for k in keys))
+    if type(x) in (list, tuple):
+        return TreeDef("list" if type(x) is list else "tuple", (),
+                       tuple(_walk(c, leaves, is_leaf) for c in x))
+    raise TypeError(f"cannot flatten a {type(x).__name__}: checkpoint trees are "
+                    f"dict / OrderedDict / list / tuple / None over tensors, "
+                    f"numpy arrays and numbers")
 
 
 def tree_unflatten(treedef: TreeDef, leaves):
