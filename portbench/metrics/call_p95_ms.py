@@ -1,0 +1,11 @@
+"""``call_p95_ms``: the 95th percentile over all calls of the window of one
+call's time, from a CUDA event recorded at the entry call to one recorded
+after its return, both read on the device's clock once the synchronise has
+returned (a call is shorter than the host clock's resolution allows)."""
+import numpy as np
+
+
+def read(run):
+    if not run.call_ms:
+        return None
+    return float(np.percentile(np.asarray(run.call_ms), 95))
