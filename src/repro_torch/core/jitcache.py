@@ -26,6 +26,8 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+from repro_torch.core import trace
+
 _programs: dict[Any, Callable] = {}
 _stats = {"hits": 0, "misses": 0}
 
@@ -35,13 +37,15 @@ def get(key: Any, builder: Callable[[], Callable]) -> Callable:
 
     ``key`` must be hashable and capture everything the built program holds
     that does not depend on the data (code, survivor set, stripe width,
-    chunk count, stagger, device); ``builder`` is invoked only on a miss.
+    chunk count, stagger, device); ``builder`` is invoked only on a miss,
+    in a ``repro_torch.build`` span.
     """
     try:
         fn = _programs[key]
     except KeyError:
         _stats["misses"] += 1
-        fn = _programs[key] = builder()
+        with trace.span("repro_torch.build"):
+            fn = _programs[key] = builder()
         return fn
     _stats["hits"] += 1
     return fn

@@ -41,12 +41,31 @@ devices' current streams with events (the producer's launch before the
 copy, the consumer's earlier launch before it is overwritten). Ticks stay
 ``num_chunks + n - 1`` (``num_ticks_many`` staggered); without a placement
 the run is the one-launch-a-tick path above.
+
+``stats()["wire_bytes_zeroed"]`` counts the bytes of wire that
+``make_wires`` zero-fills, process-wide (``reset_stats`` sets it to 0). A
+monolithic call makes fresh wires and pays it every call; a streamed
+program's stripes make theirs once.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
+
+from repro_torch.core import trace
+
+_stats = {"wire_bytes_zeroed": 0}
+
+
+def stats() -> dict[str, int]:
+    """The wire counter (process-wide): bytes zero-filled by ``make_wires``."""
+    return dict(_stats)
+
+
+def reset_stats() -> None:
+    _stats["wire_bytes_zeroed"] = 0
 
 
 def num_ticks(num_chunks: int, n_stages: int) -> int:
@@ -94,9 +113,11 @@ def placed_wires(shape: tuple[int, ...], placement) -> list[tuple[torch.Tensor, 
     ``shape`` (n, ...) on one device: incoming (1, ...) zeroed (position 0's
     stays zero, the head of the chain), outgoing (2, ...) with the forward
     in row 1, or (1, ...) for the last position."""
+    shapes = _wire_shapes(shape, placement)
+    _stats["wire_bytes_zeroed"] += sum(4 * math.prod(i) for i, _ in shapes)
     return [(torch.zeros(i, dtype=torch.int32, device=d),
              torch.empty(o, dtype=torch.int32, device=d))
-            for (i, o), d in zip(_wire_shapes(shape, placement), placement)]
+            for (i, o), d in zip(shapes, placement)]
 
 
 def make_wires(shape: tuple[int, ...], device: torch.device, placement=None) -> list:
@@ -104,6 +125,7 @@ def make_wires(shape: tuple[int, ...], device: torch.device, placement=None) -> 
     placement each position's pair (``placed_wires``)."""
     if placement is not None:
         return placed_wires(shape, placement)
+    _stats["wire_bytes_zeroed"] += 2 * 4 * math.prod(shape)
     return [torch.zeros(shape, dtype=torch.int32, device=device) for _ in range(2)]
 
 
@@ -131,20 +153,24 @@ def _wires(shape: tuple[int, ...], device: torch.device, wires, placement=None) 
 def _run(step_fn: Callable, n: int, ticks: int, active: Callable, wires: list,
          placement) -> int:
     """The tick loop: one ``step_fn`` call over the active nodes a tick, or,
-    placed, one call a position and then the copies along the chain."""
+    placed, one call a position and then the copies along the chain; each
+    tick in a ``repro_torch.tick`` span."""
+    tick = trace.spans("repro_torch.tick")
     if placement is None:
         for t in range(ticks):
             lo, count = active(t)
-            step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
+            with tick():
+                step_fn(wires[(t + 1) % 2], wires[t % 2], t, lo, count)
         return ticks
     if len(placement) != n:
         raise ValueError(f"a placement of {len(placement)} positions for a chain of {n}")
     for t in range(ticks):
         lo, count = active(t)
-        for p in range(lo, lo + count):
-            step_fn(wires[p][0], wires[p][1], t, p, 1)
-        for p in range(lo, min(lo + count, n - 1)):   # ppermute: p's forward -> p + 1
-            wires[p + 1][0].copy_(wires[p][1][1:])
+        with tick():
+            for p in range(lo, lo + count):
+                step_fn(wires[p][0], wires[p][1], t, p, 1)
+            for p in range(lo, min(lo + count, n - 1)):   # ppermute: p's forward -> p + 1
+                wires[p + 1][0].copy_(wires[p][1][1:])
     return ticks
 
 
@@ -171,7 +197,8 @@ def software_pipeline(step_fn: Callable, n: int, num_chunks: int,
     """
     if n < 1 or num_chunks < 1:
         raise ValueError(f"need n >= 1 and num_chunks >= 1, got {n}, {num_chunks}")
-    wires = _wires(wire_shape, device, wires, placement)
+    with trace.span("repro_torch.wires"):
+        wires = _wires(wire_shape, device, wires, placement)
     return _run(step_fn, n, num_ticks(num_chunks, n),
                 lambda t: active_nodes(t, n, num_chunks), wires, placement)
 
@@ -228,7 +255,8 @@ def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
         raise ValueError(f"need n, num_chunks, num_objects and stagger >= 1, got "
                          f"{n}, {num_chunks}, {num_objects}, {stagger}")
     W = window_size(num_chunks, num_objects, stagger)
-    wires = _wires((n, W) + tuple(slot_shape), device, wires, placement)
+    with trace.span("repro_torch.wires"):
+        wires = _wires((n, W) + tuple(slot_shape), device, wires, placement)
     return _run(step_fn, n, num_ticks_many(num_chunks, n, num_objects, stagger),
                 lambda t: active_nodes_many(t, n, num_chunks, num_objects, stagger),
                 wires, placement)

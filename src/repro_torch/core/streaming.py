@@ -39,7 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core import gf, pipeline
+from repro_torch.core import gf, pipeline, trace
 from repro_torch.kernels.gf_encode import kernel
 
 #: env knob that forces a small per-device streaming budget
@@ -197,11 +197,13 @@ class Program:
         if tuple(x.shape) != self.in_shape or x.device != self.device:
             raise ValueError(f"program input {tuple(x.shape)} on {x.device}, want "
                              f"{self.in_shape} on {self.device}")
-        src = gf.pack_u32(x, self.l)
-        out = torch.empty(self.out_lead + (src.shape[-1],), dtype=torch.int32,
-                          device=self.device)
+        with trace.span("repro_torch.buffers"):
+            src = gf.pack_u32(x, self.l)
+            out = torch.empty(self.out_lead + (src.shape[-1],), dtype=torch.int32,
+                              device=self.device)
         self.ticks(src, out, None)
-        return gf.unpack_u32(out, self.l)
+        with trace.span("repro_torch.unpack"):
+            return gf.unpack_u32(out, self.l)
 
     def stripes(self, depth: int) -> "_Stripes":
         """The streamed run's buffers and graphs for ``depth`` stripes in

@@ -54,7 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import autotune, gf, jitcache, pipeline, streaming
+from repro_torch.core import autotune, gf, jitcache, pipeline, streaming, trace
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
 from repro_torch.launch import mesh as mesh_lib
@@ -344,7 +344,8 @@ def run_program(key, build, x: torch.Tensor, plan: streaming.StreamPlan, sink,
     ``x``: in place on ``device`` for the single-stripe plan, else stripe
     by stripe from the host (a CUDA ``x`` is brought to the host first, as
     the JAX package's streaming takes host arrays)."""
-    program = jitcache.get(key, build)
+    with trace.span("repro_torch.lookup"):
+        program = jitcache.get(key, build)
     if not plan.streaming:
         x = x.to(device)
     return streaming.run_words(program, x, plan, sink=sink)
@@ -403,6 +404,7 @@ def _build_encode(code: ErasureCode, sc_words: int, num_chunks: int,
                              placement=placement)
 
 
+@trace.root("encode")
 def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
                      device=None, superchunk_words: int | None = None,
                      sink=None, mesh=None, order=None) -> torch.Tensor | None:
@@ -427,16 +429,18 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
     codeword block, computed on its device and returned on the first
     position's, bit for bit the unplaced result.
     """
-    if not code.supports_chain_encode:
-        raise ValueError(
-            f"pipelined_encode: {code.family} has no chain schedule — "
-            f"use code.encode_np")
-    dev, placement, mesh = resolve_placement(code.n, mesh, order, device, "pipelined_encode")
-    data = _words(data, code.l, code.k, "pipelined_encode")
-    if num_chunks is None:   # tuned (or hand-tuned default) chunk count
-        num_chunks = autotune.num_chunks_for("encode", code, data.shape[1], device=dev)
-    plan, num_chunks = stream_plan(data.shape[1], superchunk_words, code.l, num_chunks,
-                                   "pipelined_encode")
+    with trace.span("repro_torch.resolve"):
+        if not code.supports_chain_encode:
+            raise ValueError(
+                f"pipelined_encode: {code.family} has no chain schedule — "
+                f"use code.encode_np")
+        dev, placement, mesh = resolve_placement(code.n, mesh, order, device,
+                                                 "pipelined_encode")
+        data = _words(data, code.l, code.k, "pipelined_encode")
+        if num_chunks is None:   # tuned (or hand-tuned default) chunk count
+            num_chunks = autotune.num_chunks_for("encode", code, data.shape[1], device=dev)
+        plan, num_chunks = stream_plan(data.shape[1], superchunk_words, code.l, num_chunks,
+                                       "pipelined_encode")
     return run_program(("encode", code.cache_key, mesh, plan.sc_words, num_chunks, dev),
                        lambda: _build_encode(code, plan.sc_words, num_chunks, dev, placement),
                        data, plan, sink, dev)
@@ -518,6 +522,7 @@ def _build_decode(code: ErasureCode, ids: tuple[int, ...], sc_words: int,
                              placement=placement)
 
 
+@trace.root("decode")
 def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = None,
                      device=None, superchunk_words: int | None = None,
                      sink=None, mesh=None) -> torch.Tensor | None:
@@ -537,19 +542,20 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
     places survivor i's chain position on its i-th device, as in
     ``pipelined_encode``; the result comes back on its first device.
     """
-    if not code.positionwise:
-        raise ValueError(
-            f"pipelined_decode: {code.family} shards are sub-packetized — "
-            f"use code.decode_np")
-    ids = tuple(int(i) for i in ids)
-    dev, placement, mesh = resolve_placement(len(ids), mesh, None, device,
-                                             "pipelined_decode")
-    shards = _words(shards, code.l, len(ids), "pipelined_decode")
-    if num_chunks is None:
-        num_chunks = autotune.num_chunks_for("decode", code, shards.shape[1],
-                                             chain_len=len(ids), device=dev)
-    plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l, num_chunks,
-                                   "pipelined_decode")
+    with trace.span("repro_torch.resolve"):
+        if not code.positionwise:
+            raise ValueError(
+                f"pipelined_decode: {code.family} shards are sub-packetized — "
+                f"use code.decode_np")
+        ids = tuple(int(i) for i in ids)
+        dev, placement, mesh = resolve_placement(len(ids), mesh, None, device,
+                                                 "pipelined_decode")
+        shards = _words(shards, code.l, len(ids), "pipelined_decode")
+        if num_chunks is None:
+            num_chunks = autotune.num_chunks_for("decode", code, shards.shape[1],
+                                                 chain_len=len(ids), device=dev)
+        plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l,
+                                       num_chunks, "pipelined_decode")
     return run_program(("decode", code.cache_key, ids, mesh, plan.sc_words, num_chunks, dev),
                        lambda: _build_decode(code, ids, plan.sc_words, num_chunks, dev,
                                              placement),

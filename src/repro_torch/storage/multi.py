@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import autotune, gf, pipeline, streaming
+from repro_torch.core import autotune, gf, pipeline, streaming, trace
 from repro_torch.core.codes import ErasureCode
 from repro_torch.storage.chain import (decode_tables, device_tables, encode_ticks,
                                        identity_rows, resolve_placement, run_program,
@@ -107,6 +107,7 @@ def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks:
                              wire_shape=(n, W, S), ticks=ticks, placement=placement)
 
 
+@trace.root("encode_many")
 def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = None,
                           stagger: int | None = None, device=None,
                           superchunk_words: int | None = None,
@@ -127,19 +128,20 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     chain positions on devices for every object of the batch, as in
     ``chain.pipelined_encode``.
     """
-    if not code.supports_chain_encode:
-        raise ValueError(
-            f"pipelined_encode_many: {code.family} has no chain schedule — "
-            f"use code.encode_np or the fused-kernel archive path")
-    what = "pipelined_encode_many"
-    dev, placement, mesh = resolve_placement(code.n, mesh, order, device, what)
-    objects = batch_words(objects, code.l, code.k, what, "objects", "k")
-    B_obj, _, B = objects.shape
-    if num_chunks is None:
-        num_chunks = autotune.num_chunks_for("encode_many", code, B, extra_key=(B_obj,),
-                                             device=dev)
-    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
-    stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
+    with trace.span("repro_torch.resolve"):
+        if not code.supports_chain_encode:
+            raise ValueError(
+                f"pipelined_encode_many: {code.family} has no chain schedule — "
+                f"use code.encode_np or the fused-kernel archive path")
+        what = "pipelined_encode_many"
+        dev, placement, mesh = resolve_placement(code.n, mesh, order, device, what)
+        objects = batch_words(objects, code.l, code.k, what, "objects", "k")
+        B_obj, _, B = objects.shape
+        if num_chunks is None:
+            num_chunks = autotune.num_chunks_for("encode_many", code, B, extra_key=(B_obj,),
+                                                 device=dev)
+        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
+        stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
         ("encode_many", code.cache_key, mesh, B_obj, plan.sc_words, num_chunks, stagger, dev),
         lambda: _build_encode_many(code, B_obj, plan.sc_words, num_chunks, stagger, dev,
@@ -172,6 +174,7 @@ def _build_decode_many(code: ErasureCode, ids: tuple[int, ...], B_obj: int,
                              wire_shape=(n_alive, W, k, S), ticks=ticks, placement=placement)
 
 
+@trace.root("decode_many")
 def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None = None,
                           stagger: int | None = None, device=None,
                           superchunk_words: int | None = None,
@@ -192,20 +195,21 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
     (len(ids) devices) places the survivors' chain positions, as in
     ``chain.pipelined_decode``.
     """
-    if not code.positionwise:
-        raise ValueError(
-            f"pipelined_decode_many: {code.family} shards are "
-            f"sub-packetized — use code.decode_np")
-    what = "pipelined_decode_many"
-    ids = tuple(int(i) for i in ids)
-    dev, placement, mesh = resolve_placement(len(ids), mesh, None, device, what)
-    shards = batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
-    B_obj, _, B = shards.shape
-    if num_chunks is None:
-        num_chunks = autotune.num_chunks_for("decode_many", code, B, chain_len=len(ids),
-                                             extra_key=(B_obj,), device=dev)
-    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
-    stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
+    with trace.span("repro_torch.resolve"):
+        if not code.positionwise:
+            raise ValueError(
+                f"pipelined_decode_many: {code.family} shards are "
+                f"sub-packetized — use code.decode_np")
+        what = "pipelined_decode_many"
+        ids = tuple(int(i) for i in ids)
+        dev, placement, mesh = resolve_placement(len(ids), mesh, None, device, what)
+        shards = batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
+        B_obj, _, B = shards.shape
+        if num_chunks is None:
+            num_chunks = autotune.num_chunks_for("decode_many", code, B, chain_len=len(ids),
+                                                 extra_key=(B_obj,), device=dev)
+        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
+        stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
         ("decode_many", code.cache_key, ids, mesh, B_obj, plan.sc_words, num_chunks, stagger,
          dev),

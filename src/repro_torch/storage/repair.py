@@ -61,7 +61,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import autotune, fault_tolerance, gf, pipeline, streaming
+from repro_torch.core import autotune, fault_tolerance, gf, pipeline, streaming, trace
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
 from repro_torch.storage import multi
@@ -197,6 +197,7 @@ def _repair_placement(code: ErasureCode, missing, ids, mesh, device, what: str):
     return resolve_placement(h, mesh, None, device, what, reverse=True)
 
 
+@trace.root("repair")
 def pipelined_repair(code: ErasureCode, ids, shards, missing,
                      num_chunks: int | None = None, device=None,
                      superchunk_words: int | None = None, sink=None,
@@ -216,17 +217,18 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
     places the helper chain on devices; the result comes back on the first
     position's. Raises ValueError if the survivors are not decodable.
     """
-    what = "pipelined_repair"
-    ids = tuple(int(i) for i in ids)
-    missing = tuple(int(m) for m in missing)
-    dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
-    shards = _survivor_shards(code, ids, shards, what)
-    B = shards.shape[1]
-    if num_chunks is None:
-        helpers, _ = _repair_plan_cached(code, missing, ids)
-        num_chunks = autotune.num_chunks_for("repair", code, B, chain_len=len(helpers),
-                                             device=dev)
-    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
+    with trace.span("repro_torch.resolve"):
+        what = "pipelined_repair"
+        ids = tuple(int(i) for i in ids)
+        missing = tuple(int(m) for m in missing)
+        dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
+        shards = _survivor_shards(code, ids, shards, what)
+        B = shards.shape[1]
+        if num_chunks is None:
+            helpers, _ = _repair_plan_cached(code, missing, ids)
+            num_chunks = autotune.num_chunks_for("repair", code, B, chain_len=len(helpers),
+                                                 device=dev)
+        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
     return run_program(
         ("repair", code.cache_key, missing, ids, mesh, plan.sc_words, num_chunks, dev),
         lambda: _build_repair(code, missing, ids, None, plan.sc_words, num_chunks, 0, dev,
@@ -234,6 +236,7 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
         shards, plan, sink, dev)
 
 
+@trace.root("repair_many")
 def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
                           num_chunks: int | None = None, stagger: int | None = None,
                           device=None, superchunk_words: int | None = None,
@@ -251,21 +254,23 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     stripe. ``mesh`` places the helper chain as in ``pipelined_repair``.
     Raises ValueError if the survivors are not decodable.
     """
-    what = "pipelined_repair_many"
-    if not code.positionwise:
-        raise ValueError(f"{what}: {code.family} shards are "
-                         f"sub-packetized — use code.repair_np")
-    ids = tuple(int(i) for i in ids)
-    missing = tuple(int(m) for m in missing)
-    dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
-    shards = multi.batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
-    B_obj, _, B = shards.shape
-    if num_chunks is None:
-        helpers, _ = _repair_plan_cached(code, missing, ids)
-        num_chunks = autotune.num_chunks_for("repair_many", code, B, chain_len=len(helpers),
-                                             extra_key=(B_obj,), device=dev)
-    plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
-    stagger = multi.tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
+    with trace.span("repro_torch.resolve"):
+        what = "pipelined_repair_many"
+        if not code.positionwise:
+            raise ValueError(f"{what}: {code.family} shards are "
+                             f"sub-packetized — use code.repair_np")
+        ids = tuple(int(i) for i in ids)
+        missing = tuple(int(m) for m in missing)
+        dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
+        shards = multi.batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
+        B_obj, _, B = shards.shape
+        if num_chunks is None:
+            helpers, _ = _repair_plan_cached(code, missing, ids)
+            num_chunks = autotune.num_chunks_for("repair_many", code, B,
+                                                 chain_len=len(helpers), extra_key=(B_obj,),
+                                                 device=dev)
+        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
+        stagger = multi.tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
     return run_program(
         ("repair_many", code.cache_key, missing, ids, mesh, B_obj, plan.sc_words, num_chunks,
          stagger, dev),
