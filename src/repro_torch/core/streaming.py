@@ -163,20 +163,22 @@ class Program:
     ``wires`` the two wire buffers of shape ``wire_shape`` (None: fresh
     zeroed ones), or with a ``placement`` (the device of each chain
     position, ``pipeline.position_devices``) each position's pair
-    (``pipeline.placed_wires``). The builder closes it over what does not
-    depend on the data: the product tables on ``device``, the frozen host
-    tables.
+    (``pipeline.placed_wires``). A ``wire_shape`` of None: the ticks keep
+    no wires the caller could hold (an unplaced decode or repair, whose
+    sums never leave the kernel on the card), and ``wires`` is None. The
+    builder closes it over what does not depend on the data: the product
+    tables on ``device``, the frozen host tables.
     """
 
     def __init__(self, *, device: torch.device, l: int, sc_words: int,
                  in_lead: tuple[int, ...], out_lead: tuple[int, ...],
-                 wire_shape: tuple[int, ...], ticks: Callable, placement=None):
+                 wire_shape: tuple[int, ...] | None, ticks: Callable, placement=None):
         self.device = device
         self.l = l
         self.sc_words = sc_words
         self.in_lead = tuple(in_lead)
         self.out_lead = tuple(out_lead)
-        self.wire_shape = tuple(wire_shape)
+        self.wire_shape = None if wire_shape is None else tuple(wire_shape)
         self.ticks = ticks
         self.placement = placement
         self._stripes: dict[int, _Stripes] = {}
@@ -217,9 +219,9 @@ class Program:
 class _Stripes:
     """A program's streamed-run state on the card: ``depth + 1`` buffer
     slots (device input and output stripe, pinned host staging of each),
-    one set of wires they share (the slots' graphs run one after another
-    on one stream), one captured graph a slot, two copy streams and each
-    slot's events. A graph cannot span devices: a program whose placement
+    one set of wires they share where the program keeps wires (the slots'
+    graphs run one after another on one stream), one captured graph a
+    slot, two copy streams and each slot's events. A graph cannot span devices: a program whose placement
     puts a position on another device than its own captures none, and its
     slots run the ticks eagerly. The program owns every buffer for its lifetime, so no
     tensor is freed while a copy or a replay on another stream may still
@@ -234,7 +236,8 @@ class _Stripes:
                      for _ in range(self.slots)]
         self.d_out = [torch.zeros(out_shape, dtype=torch.int32, device=dev)
                       for _ in range(self.slots)]
-        self.wires = pipeline.make_wires(program.wire_shape, dev, program.placement)
+        self.wires = (None if program.wire_shape is None else
+                      pipeline.make_wires(program.wire_shape, dev, program.placement))
         devices = {dev} | set(program.placement or ())
         self.h_in = [torch.zeros(in_shape, dtype=torch.int32, pin_memory=True)
                      for _ in range(self.slots)]

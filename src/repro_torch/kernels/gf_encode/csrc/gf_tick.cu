@@ -102,6 +102,47 @@
 // - Node 0 of a pipelined run reads wire row 0, which the pipeline never
 //   writes: with head_zero the kernel starts node 0 from zero sums and
 //   skips that read. Without it, row 0 is read like any other.
+//
+// repair_chain replaces the whole chain of repair_step_kernel ticks of an
+// unplaced decode or repair (every chunk of every object, every position)
+// with one launch. On one card every chain position shares one memory, so
+// the partial sums need not cross HBM between positions: per lane tile they
+// start at zero, take each position's products in chain order, in
+// registers, and only the last position's sums are stored. Per lane it
+// reads h shard lanes and writes `rows` sums, the result's own bytes: on the
+// (16,11) GF(2^16) decode of a 704 MiB object 1.48 GB, 0.44 ms of HBM,
+// against about 16 GB through the ticks' wires (PERF.md).
+// Bound: shared memory. With the bytes gone, the lookups are what is left:
+// 11 positions x 2^24 lanes x 24 byte lookups, 4.4e9, for that decode. The
+// ticks' 256-entry byte tables take about 3.5 wavefronts a warp's lookup
+// (random bytes hit 8 entries of each bank), about 2 ms of the H100's
+// shared-memory pipe. The design:
+// - Nibble tables for a row group of several packs. A block stages 16-entry
+//   tables per 4-bit nibble of a word, taken by linearity from the same
+//   byte tables (entries v and v << 4 of byte m / 2's table for nibble m).
+//   A table fills 16 banks once, so a warp's lookup is one wavefront: twice
+//   the lookups at 1 wavefront each, against 3.5, and 8x less shared memory
+//   (256 B a GF(2^16) row pack). The decode took 1.36-1.41 ms, against
+//   1.86 ms with byte tables (PERF.md).
+// - Byte tables for a group of one pack (a repair of one lost row): there a
+//   nibble's index costs more issue than its conflicts save. Repair-16's
+//   chain took 5.28-5.36 ms with byte tables, 6.17-6.29 ms with nibbles and
+//   5.43 ms with the low byte's table and the high byte's nibbles (its HBM
+//   floor is 3.85 ms); its fewer registers fit two blocks an SM.
+// - Persistent blocks of 512 threads walk (object, lane tile) items. A
+//   block stages every position's tables once where they fit 227 KB (the
+//   decode's 16.5 KB), else, per item and row group, `group` positions at
+//   a time: the sums stay in registers across those stages.
+// - Rows in groups of kGroupRows held in registers, the shards reread once
+//   a group, as in repair_tick.
+// - The next position's shard lanes are loaded before the current one's
+//   lookups, the next two positions' for a group of one pack: one depth
+//   for every group cost the decode 3-6% and the one-pack repair 1-3%, two
+//   for every group the decode 7% (PERF.md); 16-byte lanes where every row
+//   is 16-byte aligned.
+// - A launch takes 256 positions (its row table travels by value); a longer
+//   chain is several launches, each after the first starting from the sums
+//   the one before left in `out`.
 
 #include <cuda_runtime.h>
 
@@ -385,16 +426,16 @@ struct RepairNodes {
 };
 
 // acc[r][w] ^= the products of lane v[w] with row r of the group, from the
-// tables of the group's first `packs` row packs.
-template <int L, int VEC>
+// byte tables of the group's first `packs` row packs (at most G).
+template <int L, int VEC, int G = kGroupPacks<L>>
 __device__ __forceinline__ void add_row_products(const uint32_t* s_grp, int packs,
                                                  const uint32_t (&v)[VEC],
-                                                 uint32_t (&acc)[kGroupRows][VEC]) {
+                                                 uint32_t (&acc)[G * kPackRows<L>][VEC]) {
 #pragma unroll
   for (int w = 0; w < VEC; ++w) {
     const uint32_t x = v[w];
 #pragma unroll
-    for (int q = 0; q < kGroupPacks<L>; ++q) {
+    for (int q = 0; q < G; ++q) {
       if (q >= packs) break;
       const uint32_t* T = s_grp + q * kPackWords<L>;
       if constexpr (L == 16) {
@@ -492,6 +533,179 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// repair_chain
+// ---------------------------------------------------------------------------
+
+constexpr int kChainThreads = 512;
+constexpr int kMaxChainNodes = 256;   // positions one launch takes
+
+// The shard row of each position of the launch. Passed by value.
+struct ChainRows {
+  int shard[kMaxChainNodes];
+};
+
+// words of one row pack's nibble tables: 16 entries for each nibble of a word
+template <int L>
+constexpr int kNibbleWords = L / 4 * 16;
+
+// Tables a row group of G packs looks its products up in: 16-entry nibble
+// tables where it has several packs, the 256-entry byte tables for one
+template <int G>
+constexpr bool kNibbles = G > 1;
+template <int L, int G>
+constexpr int kChainPackWords = kNibbles<G> ? kNibbleWords<L> : kPackWords<L>;
+// positions whose shard lanes a thread has in flight ahead of its lookups
+template <int G>
+constexpr int kAhead = G == 1 ? 2 : 1;
+
+// Stages the tables of positions [p0, p1) and row packs [q0, q0 + np) into
+// s, laid out (p - p0, q - q0, kChainPackWords), from the byte tables (h,
+// packs, L/8, 256). Nibble tables: nibble m of a word is the low or the
+// high half of byte m / 2, so its entry v is that byte's entry v or v << 4.
+template <int L, int G>
+__device__ __forceinline__ void stage_chain_tables(uint32_t* s, const uint32_t* tables,
+                                                   int packs, int p0, int p1, int q0, int np) {
+  constexpr int NW = kChainPackWords<L, G>;
+  const int per = np * NW;
+  for (int e = threadIdx.x; e < (p1 - p0) * per; e += kChainThreads) {
+    const int p = p0 + e / per, r = e % per;
+    const uint32_t* pack = tables + (static_cast<size_t>(p) * packs + q0 + r / NW) * kPackWords<L>;
+    if constexpr (kNibbles<G>) {
+      const int m = r % NW / 16, v = r % 16;
+      s[e] = pack[(m >> 1) * 256 + (v << (4 * (m & 1)))];
+    } else {
+      s[e] = pack[r % NW];
+    }
+  }
+}
+
+// acc[r][w] ^= the products of lane v[w] with row r of the group, from the
+// nibble tables of the group's first `packs` row packs (at most G).
+template <int L, int VEC, int G>
+__device__ __forceinline__ void add_row_nibbles(const uint32_t* s_grp, int packs,
+                                                const uint32_t (&v)[VEC],
+                                                uint32_t (&acc)[G * kPackRows<L>][VEC]) {
+  constexpr int NW = kNibbleWords<L>;
+#pragma unroll
+  for (int w = 0; w < VEC; ++w) {
+    // nibble k of the lane indexes table k % (L / 4) of every pack
+    int at[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) at[k] = (k % (L / 4)) * 16 + ((v[w] >> (4 * k)) & 15u);
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      if (q >= packs) break;
+      const uint32_t* T = s_grp + q * NW;
+      if constexpr (L == 16) {
+        // e0 / e1: (row 2q, row 2q + 1) products of word 0 / word 1
+        const uint32_t e0 = T[at[0]] ^ T[at[1]] ^ T[at[2]] ^ T[at[3]];
+        const uint32_t e1 = T[at[4]] ^ T[at[5]] ^ T[at[6]] ^ T[at[7]];
+        acc[2 * q][w] ^= __byte_perm(e0, e1, 0x5410);
+        acc[2 * q + 1][w] ^= __byte_perm(e0, e1, 0x7632);
+      } else {
+        // e_m: byte r is row 4q + r's product of word m; transpose the bytes
+        const uint32_t e0 = T[at[0]] ^ T[at[1]], e1 = T[at[2]] ^ T[at[3]];
+        const uint32_t e2 = T[at[4]] ^ T[at[5]], e3 = T[at[6]] ^ T[at[7]];
+        const uint32_t a = __byte_perm(e0, e1, 0x5140), b = __byte_perm(e0, e1, 0x7362);
+        const uint32_t c = __byte_perm(e2, e3, 0x5140), d = __byte_perm(e2, e3, 0x7362);
+        acc[4 * q][w] ^= __byte_perm(a, c, 0x5410);
+        acc[4 * q + 1][w] ^= __byte_perm(a, c, 0x7632);
+        acc[4 * q + 2][w] ^= __byte_perm(b, d, 0x5410);
+        acc[4 * q + 3][w] ^= __byte_perm(b, d, 0x7632);
+      }
+    }
+  }
+}
+
+// shards: object b's shard row r at shards + r * shard_row + b * shard_obj,
+// out (n_obj, rows, Bp), tables (h, packs, L/8, 256) of the launch's h
+// positions, position p reading shard row pos.shard[p]. Each block walks
+// (object, lane tile) items; per item and row group of G packs the sums
+// start at zero (with from_out: at out's), take every position's products
+// in chain order and are stored to out. With `whole` every table is staged
+// once; else `group` positions of one row group at a time, for each item.
+// A group of several packs looks its products up in nibble tables, a group
+// of one (a single lost row) in the byte tables.
+template <int L, int VEC, int G>
+__global__ void __launch_bounds__(kChainThreads, G == 1 ? 2 : 1)
+    repair_chain_kernel(const uint32_t* __restrict__ shards, uint32_t* __restrict__ out,
+                        const uint32_t* __restrict__ tables, const ChainRows pos, int h,
+                        int rows, int n_obj, int whole, int group, long long Bp,
+                        long long shard_row, long long shard_obj, int from_out) {
+  extern __shared__ uint32_t s_tab[];
+  constexpr int P = kPackRows<L>;
+  constexpr int NW = kChainPackWords<L, G>;
+  constexpr int GR = G * P;
+  const int packs = (rows + P - 1) / P;
+  const long long steps = Bp / VEC;  // VEC divides Bp (checked by the launcher)
+  const long long tiles = (steps + kChainThreads - 1) / kChainThreads;
+  if (whole) {
+    stage_chain_tables<L, G>(s_tab, tables, packs, 0, h, 0, packs);
+    __syncthreads();
+  }
+  // every thread of a block walks the same items, so a stage may sit inside
+  for (long long it = blockIdx.x; it < tiles * n_obj; it += gridDim.x) {
+    const int o = static_cast<int>(it / tiles);
+    const long long j = (it % tiles) * kChainThreads + threadIdx.x;
+    const bool active = j < steps;
+    const uint32_t* src = shards + o * shard_obj + j * VEC;
+    uint32_t* dst = out + static_cast<size_t>(o) * rows * Bp + j * VEC;
+    for (int q0 = 0; q0 < packs; q0 += G) {
+      const int gp = min(G, packs - q0);
+      const int r0 = q0 * P, nr = min(GR, rows - r0);  // the group's first row, its rows
+      uint32_t acc[GR][VEC];
+#pragma unroll
+      for (int r = 0; r < GR; ++r) {
+        if (from_out && active && r < nr) {
+          load_lanes<VEC>(dst + (r0 + r) * Bp, acc[r]);
+        } else {
+#pragma unroll
+          for (int w = 0; w < VEC; ++w) acc[r][w] = 0;
+        }
+      }
+      for (int p0 = 0; p0 < h; p0 += group) {
+        const int p1 = min(h, p0 + group);
+        const uint32_t* s_grp = s_tab + q0 * NW;  // position p's at s_grp + (p - p0) * stride
+        int stride = packs * NW;
+        if (!whole) {
+          __syncthreads();  // every thread is done with the previous stage
+          stage_chain_tables<L, G>(s_tab, tables, packs, p0, p1, q0, gp);
+          __syncthreads();
+          s_grp = s_tab;
+          stride = gp * NW;
+        }
+        // the next kAhead positions' lanes in flight before a position's lookups
+        constexpr int A = kAhead<G>;
+        uint32_t ahead[A][VEC] = {};
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+          if (active && p0 + a < p1) load_lanes<VEC>(src + pos.shard[p0 + a] * shard_row, ahead[a]);
+        for (int p = p0; p < p1; ++p) {
+          uint32_t v[VEC];
+#pragma unroll
+          for (int w = 0; w < VEC; ++w) v[w] = ahead[0][w];
+#pragma unroll
+          for (int a = 0; a + 1 < A; ++a)
+#pragma unroll
+            for (int w = 0; w < VEC; ++w) ahead[a][w] = ahead[a + 1][w];
+          if (active && p + A < p1)
+            load_lanes<VEC>(src + pos.shard[p + A] * shard_row, ahead[A - 1]);
+          if constexpr (kNibbles<G>)
+            add_row_nibbles<L, VEC, G>(s_grp + (p - p0) * stride, gp, v, acc);
+          else
+            add_row_products<L, VEC, G>(s_grp + (p - p0) * stride, gp, v, acc);
+        }
+      }
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < GR; ++r)
+          if (r < nr) store_lanes<VEC>(dst + (r0 + r) * Bp, acc[r]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -553,6 +767,50 @@ int launch_repair_tick(const uint32_t* wi, uint32_t* wo, const uint32_t* shards,
       wi, wo, shards, out, tab, nodes, win, n, rows, stage, Bp, S, shard_row, shard_obj, t,
       node_lo, head_zero, last_forwards);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, int VEC, int G>
+int launch_repair_chain(const uint32_t* shards, uint32_t* out, const uint32_t* tab,
+                        const ChainRows& pos, int h, int rows, int n_obj, long long Bp,
+                        long long shard_row, long long shard_obj, int from_out,
+                        cudaStream_t st) {
+  constexpr int table_bytes = kChainPackWords<L, G> * 4;  // a row pack's, per position
+  const int packs = (rows + kPackRows<L> - 1) / kPackRows<L>;
+  // every table at once where they fit a block, else `group` positions of
+  // one row group at a time
+  const long long all = static_cast<long long>(h) * packs * table_bytes;
+  const bool whole = all <= kMaxSmem;
+  const int group_bytes = min(G, packs) * table_bytes;
+  const int group = whole ? h : kMaxSmem / group_bytes;
+  const int smem = whole ? static_cast<int>(all) : group * group_bytes;
+  auto fn = repair_chain_kernel<L, VEC, G>;
+  cudaError_t rc = cudaSuccess;
+  if (smem > kStaticSmem)
+    rc = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // persistent blocks: as many as the SMs hold at once, at most one an item
+  int dev = 0, sms = 0, per_sm = 0;
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kChainThreads, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const long long items = (Bp / VEC + kChainThreads - 1) / kChainThreads * n_obj;
+  const long long blocks = static_cast<long long>(max(per_sm, 1)) * sms;
+  fn<<<static_cast<unsigned>(min(items, blocks)), kChainThreads, smem, st>>>(
+      shards, out, tab, pos, h, rows, n_obj, whole, group, Bp, shard_row, shard_obj, from_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L, int VEC>
+int dispatch_repair_chain(const uint32_t* shards, uint32_t* out, const uint32_t* tab,
+                          const ChainRows& pos, int h, int rows, int n_obj, long long Bp,
+                          long long shard_row, long long shard_obj, int from_out,
+                          cudaStream_t st) {
+#define GF_RCHAIN_ARGS shards, out, tab, pos, h, rows, n_obj, Bp, shard_row, shard_obj, from_out, st
+  // one row pack (a repair of one lost row): one pack of accumulators
+  return rows <= kPackRows<L> ? launch_repair_chain<L, VEC, 1>(GF_RCHAIN_ARGS)
+                              : launch_repair_chain<L, VEC, kGroupPacks<L>>(GF_RCHAIN_ARGS);
+#undef GF_RCHAIN_ARGS
 }
 
 bool bad_window(const Window& win) {
@@ -646,4 +904,36 @@ extern "C" int gf_repair_tick(const void* wire_in, void* wire_out,
                            : launch_repair_tick<16, 1>(GF_REPAIR_ARGS);
 #undef GF_REPAIR_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Positions [pos_lo, pos_lo + pos_count) of a whole decode or repair chain:
+// `tables` and `shard_rows` hold every position's, (h, packs, l/8, 256) and
+// (h,); `shards` (R, n_obj, Bp) is laid out by the strides given, `out`
+// (n_obj, rows, Bp) is contiguous. The first launch of a chain (pos_lo 0)
+// starts from zero sums; a later one from the sums in `out`.
+extern "C" int gf_repair_chain(const void* shards, void* out, const void* tables,
+                               const int* shard_rows, int l, int rows, int n_obj,
+                               long long Bp, long long shard_row, long long shard_obj,
+                               int pos_lo, int pos_count, void* stream) {
+  if (pos_lo < 0 || pos_count < 1 || pos_count > kMaxChainNodes || rows < 1 || n_obj < 1 ||
+      Bp < 1 || (l != 8 && l != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ChainRows pos;
+  for (int z = 0; z < pos_count; ++z) pos.shard[z] = shard_rows[pos_lo + z];
+  const int packs = (rows + 32 / l - 1) / (32 / l);
+  auto sh = static_cast<const uint32_t*>(shards);
+  auto ou = static_cast<uint32_t*>(out);
+  auto tb = static_cast<const uint32_t*>(tables) +
+            static_cast<size_t>(pos_lo) * packs * (l / 8) * 256;
+  const bool vec4 = Bp % 4 == 0 && shard_row % 4 == 0 && shard_obj % 4 == 0 &&
+                    aligned16(shards) && aligned16(out);
+  const int from_out = pos_lo > 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GF_RCHAIN_ARGS sh, ou, tb, pos, pos_count, rows, n_obj, Bp, shard_row, shard_obj, \
+                      from_out, st
+  if (l == 8) return vec4 ? dispatch_repair_chain<8, 4>(GF_RCHAIN_ARGS)
+                          : dispatch_repair_chain<8, 1>(GF_RCHAIN_ARGS);
+  return vec4 ? dispatch_repair_chain<16, 4>(GF_RCHAIN_ARGS)
+              : dispatch_repair_chain<16, 1>(GF_RCHAIN_ARGS);
+#undef GF_RCHAIN_ARGS
 }

@@ -1,6 +1,7 @@
 """Build, bind and launch the hand-written CUDA kernels in ``csrc/``.
 
-``gf_tick.cu`` holds the pipeline ticks (``chain_tick``, ``repair_tick``),
+``gf_tick.cu`` holds the pipeline ticks (``chain_tick``, ``repair_tick``) and
+the whole unplaced decode or repair chain in one launch (``repair_chain``),
 ``gf_mxu.cu`` the bit-lifted encode on the int8 tensor cores
 (``gf_encode_mxu``), ``gf_module.cu`` the driver-API loader of the
 per-matrix kernels, and ``gf_encode.cu`` the template of the
@@ -31,6 +32,7 @@ replay. Outputs are written in place into the caller's buffers.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -115,6 +117,8 @@ def load_library() -> ctypes.CDLL:
     lib.gf_repair_tick.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                    i32, i64, i64, i64, i64, i32, i32, i32, i32, i32, vp]
     lib.gf_repair_tick.restype = i32
+    lib.gf_repair_chain.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64, i64, i64, i32, i32, vp]
+    lib.gf_repair_chain.restype = i32
     lib.gf_encode_mxu.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
     lib.gf_encode_mxu.restype = i32
     lib.gf_encode_mxu_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
@@ -197,6 +201,7 @@ def _raise_on(name: str, rc: int) -> None:
 TABLE_BYTES = 256             # byte values a product table holds
 MAX_TICK_NODES = 256          # active nodes one tick launch takes
 MAX_TICK_SLOTS = 512          # replica slots one chain_tick launch takes
+MAX_CHAIN_NODES = 256         # chain positions one repair_chain launch takes
 
 
 def _byte_tables(planes: np.ndarray, l: int) -> np.ndarray:
@@ -450,6 +455,69 @@ def repair_tick(wire_in: torch.Tensor, wire_out: torch.Tensor,
 
 
 repair_tick.launches = 0
+
+
+def check_chain(name: str, shards: torch.Tensor, shard_rows, out: torch.Tensor,
+                tables: torch.Tensor, l: int, check_rows=_check_shard_rows) -> np.ndarray:
+    """The operands of a whole decode or repair chain (``repair_chain``):
+    the field, ``shards`` (R, B_obj, Bp), ``out`` (B_obj, rows, Bp) with
+    B_obj, rows and Bp at least 1, ``tables`` (h, repair_packs(rows, l),
+    l // 8, 256) for the h positions of ``shard_rows``; returns the row
+    table as (h,) int32 on the host, from ``check_rows(name, shard_rows,
+    R)``."""
+    if l not in SUPPORTED_L:
+        raise ValueError(f"{name}: unsupported field GF(2^{l})")
+    if shards.dim() != 3 or out.dim() != 3 or tables.dim() != 4:
+        raise ValueError(f"{name}: shards {tuple(shards.shape)} / out {tuple(out.shape)} / "
+                         f"tables {tuple(tables.shape)} must be (R, B_obj, Bp) / "
+                         f"(B_obj, rows, Bp) / (h, packs, l // 8, 256)")
+    R, n_obj, Bp = shards.shape
+    shard_rows = check_rows(name, shard_rows, R)
+    h, rows = shard_rows.shape[0], out.shape[1]
+    if (n_obj < 1 or Bp < 1 or rows < 1 or out.shape != (n_obj, rows, Bp)
+            or tables.shape != (h, repair_packs(rows, l), l // 8, TABLE_BYTES)):
+        raise ValueError(f"{name}: tables {tuple(tables.shape)} / out {tuple(out.shape)} do "
+                         f"not match {h} positions of {rows} sums over shards "
+                         f"{tuple(shards.shape)}")
+    return shard_rows
+
+
+def repair_chain(shards: torch.Tensor, shard_rows, out: torch.Tensor,
+                 tables: torch.Tensor, l: int) -> None:
+    """A whole unplaced decode or repair chain on the card, in one launch
+    (replaces the chain of ``repair_step_kernel`` ticks).
+
+    Operands as ``repair_tick``'s, with no wire, tick or window: ``shards``
+    (R, B_obj, Bp) read in place, any strides with contiguous rows;
+    ``shard_rows`` (h,) host integers, chain position p reading shard row
+    ``shard_rows[p]``; ``tables`` (h, repair_packs(rows, l), l // 8, 256)
+    from ``repair_tables``; ``out`` (B_obj, rows, Bp), contiguous. Writes
+    ``out[b] = sum_p D_p * shards[shard_rows[p], b]``, the sums the last
+    position of the pipelined chain writes, every position's products added
+    in chain order, starting from zero sums.
+
+    A launch takes at most 256 positions (the row table travels in its
+    parameters); a longer chain is several launches, each after the first
+    carrying on from the sums the one before left in ``out``, and
+    ``repair_chain.launches`` counts each.
+    """
+    device = _check_tensors("repair_chain", strided=("shards",), shards=shards, out=out,
+                            tables=tables)
+    shard_rows = check_chain("repair_chain", shards, shard_rows, out, tables, l,
+                             functools.partial(_checked_table, _check_shard_rows))
+    _, n_obj, Bp = shards.shape
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for lo, count in launch_ranges(0, shard_rows.shape[0], MAX_CHAIN_NODES):
+            rc = lib.gf_repair_chain(shards.data_ptr(), out.data_ptr(), tables.data_ptr(),
+                                     shard_rows.ctypes.data, l, out.shape[1], n_obj, Bp,
+                                     shards.stride(0), shards.stride(1), lo, count, stream)
+            _raise_on("repair_chain", rc)
+            repair_chain.launches += 1
+
+
+repair_chain.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -811,7 +879,7 @@ def gf_encode_mxu(data: torch.Tensor, operand: torch.Tensor, out: torch.Tensor,
 
 gf_encode_mxu.launches = 0
 
-KERNELS = (chain_tick, repair_tick, gf_encode, gf_encode_mxu)
+KERNELS = (chain_tick, repair_tick, repair_chain, gf_encode, gf_encode_mxu)
 
 
 def reset_launch_counts() -> None:

@@ -2,7 +2,9 @@
 
 ``chain_tick`` / ``repair_tick`` run one pipeline tick over the node axis
 (the form ``repro_torch.storage.chain`` and ``storage.multi`` drive), with
-the objects in lockstep or staggered over a window. ``chain_step`` /
+the objects in lockstep or staggered over a window. ``repair_chain`` runs
+a whole unplaced decode or repair chain: one launch on the card, the ticks
+of its schedule on the CPU. ``chain_step`` /
 ``repair_step`` keep the single-node shapes of the JAX package's ops at the
 public boundary — one object, or a batch with a leading object axis — and
 run as a one-node, one-chunk tick.
@@ -26,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import autotune, gf
+from repro_torch.core import autotune, gf, pipeline, trace
 from repro_torch.kernels.gf_encode import kernel, ref
 
 DEFAULT_BLOCK = 512   # lanes per block of the bit-plane encode, as in the JAX package
@@ -69,6 +71,47 @@ def repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l: int, t: i
     fn = _route(shards, kernel.repair_tick, ref.repair_tick_ref)
     fn(wire_in, wire_out, shards, shard_rows, out, tables, l, t, num_chunks,
        node_lo, node_count, head_zero, stagger, last_forwards)
+
+
+def repair_chain(shards, shard_rows, out, tables, l: int, num_chunks: int,
+                 stagger: int = 0) -> None:
+    """A whole unplaced decode or repair chain: ``out[b]`` gets the sums the
+    last of the positions of ``shard_rows`` writes, node 0 starting from
+    zero sums; see ``kernel.repair_chain`` for shapes. On the card, one
+    launch of ``kernel.repair_chain``, in one ``repro_torch.tick`` span: the
+    sums ride the chain in registers, and ``num_chunks`` and ``stagger``
+    change nothing. On the CPU, the chain the pipelined entry points run
+    tick by tick (``pipeline.software_pipeline``, or
+    ``staggered_pipeline`` for a stagger of 1 or more): one
+    ``repair_tick`` a tick, looked up on this module at each tick, over
+    fresh zeroed wires."""
+    fn = _route(shards, _repair_chain_cuda, _repair_chain_ticks)
+    fn(shards, shard_rows, out, tables, l, num_chunks, stagger)
+
+
+def _repair_chain_cuda(shards, shard_rows, out, tables, l: int, num_chunks: int,
+                       stagger: int) -> None:
+    del num_chunks, stagger        # one launch runs every chunk of every object
+    with trace.span("repro_torch.tick"):
+        kernel.repair_chain(shards, shard_rows, out, tables, l)
+
+
+def _repair_chain_ticks(shards, shard_rows, out, tables, l: int, num_chunks: int,
+                        stagger: int) -> None:
+    shard_rows = kernel.check_chain("repair_chain", shards, shard_rows, out, tables, l)
+    h, (_, n_obj, Bp), rows = shard_rows.shape[0], shards.shape, out.shape[1]
+    # a single-object chain passes no stagger (lockstep), as it always has
+    staggered = {"stagger": stagger} if stagger else {}
+
+    def step(wire_in, wire_out, t, lo, count):
+        repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l, t, num_chunks, lo,
+                    count, head_zero=True, **staggered)
+    if stagger:
+        pipeline.staggered_pipeline(step, h, num_chunks, (rows, Bp // num_chunks),
+                                    num_objects=n_obj, stagger=stagger, device=shards.device)
+    else:
+        pipeline.software_pipeline(step, h, num_chunks, (h, n_obj, rows, Bp // num_chunks),
+                                   device=shards.device)
 
 
 def chain_step(x_in: torch.Tensor, local: torch.Tensor, bp_psi: torch.Tensor,

@@ -8,8 +8,9 @@ pipeline (``repro_torch.core.pipeline``) in ``num_chunks`` chunks, and each
 tick is ONE launch of the hand-written CUDA tick kernel over the active
 nodes (``repro_torch.kernels.gf_encode``) on packed int32 lanes. The encode
 tick reads each node's replica blocks in place through a slot table, so
-the placement is never copied; the decode tick reads the survivors' shards
-in place through a row table.
+the placement is never copied; the decode reads the survivors' shards in
+place through a row table, and on the card runs the whole chain as one
+``repair_chain`` launch whose partial sums never leave its registers.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks run the kernels' plain PyTorch versions. Asking for a CUDA
@@ -204,18 +205,14 @@ def sums_ticks(l: int, rows_table: np.ndarray, tables: torch.Tensor, num_chunks:
     wires)`` over ``shards`` (R, B_obj, Bp) and ``out`` (B_obj, rows, Bp):
     chain position p reads shard ``rows_table[p]`` and applies
     ``tables[p]``; the last position writes ``out``; position 0 starts from
-    zero sums. Unplaced: one ``repair_tick`` launch over the active nodes a
-    tick. Placed: one a position, every position but the last forwarding
-    its sums (``last_forwards``)."""
+    zero sums. Unplaced: the whole chain in one ``ops.repair_chain``, which
+    takes no wires (on the card one launch, the sums kept in registers; on
+    the CPU the ticks of its schedule). Placed: ``drive`` runs one
+    ``repair_tick`` launch a position a tick, every position but the last
+    forwarding its sums (``last_forwards``)."""
     if placement is None:
-        # a single-object call passes no stagger (lockstep), as it always has
-        staggered = {"stagger": stagger} if stagger else {}
-
         def ticks(shards, out, wires):
-            def step(wire_in, wire_out, t, lo, count):
-                ops.repair_tick(wire_in, wire_out, shards, rows_table, out, tables, l, t,
-                                num_chunks, lo, count, head_zero=True, **staggered)
-            drive(step, wires)
+            ops.repair_chain(shards, rows_table, out, tables, l, num_chunks, stagger)
         return ticks
     pos = positions(placement, device, rows_table, tables)
     h = len(pos)
@@ -503,8 +500,8 @@ def _build_decode(code: ErasureCode, ids: tuple[int, ...], sc_words: int,
     """The decode program of one survivor set and stripe geometry:
     (len(ids), sc_words) shards -> (k, sc_words) words. Node i reads shard
     i in place; only the last node's sums are kept, written straight into
-    the output; node 0 starts from zero sums and reads no wire. Placed:
-    one launch a position (``sums_ticks``)."""
+    the output; node 0 starts from zero sums. Unplaced it keeps no wires;
+    placed, one launch a position (``sums_ticks``)."""
     l, k, n_alive = code.l, code.k, len(ids)
     S = sc_words // gf.LANES[l] // num_chunks
 
@@ -517,8 +514,9 @@ def _build_decode(code: ErasureCode, ids: tuple[int, ...], sc_words: int,
     def ticks(src, out, wires):
         run(src[:, None], out[None], wires)      # (n_alive, 1, Bp), (1, k, Bp): views
 
+    wire_shape = None if placement is None else (n_alive, 1, k, S)
     return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(n_alive,),
-                             out_lead=(k,), wire_shape=(n_alive, 1, k, S), ticks=ticks,
+                             out_lead=(k,), wire_shape=wire_shape, ticks=ticks,
                              placement=placement)
 
 
@@ -530,11 +528,13 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
 
     The len(ids) shard-holding nodes form a chain; the wire carries the k
     running partial output blocks, and node i adds D[:, i] * c_i as the
-    stream passes, one repair-tick launch per tick, reading its shard in
-    place. Only the LAST node's (k, Bp) sums are kept: they are the decoded
-    object (the JAX package materializes every node's (k, Bp) and keeps
-    the last). ``shards`` (len(ids), B) words as a numpy array or tensor;
-    returns the (k, B) object as a tensor of words on ``device``.
+    stream passes, reading its shard in place. Only the LAST node's (k, Bp)
+    sums are kept: they are the decoded object (the JAX package
+    materializes every node's (k, Bp) and keeps the last). On the card the
+    whole chain is one ``repair_chain`` launch, the sums carried in
+    registers; on the CPU, one repair tick a tick. ``shards`` (len(ids),
+    B) words as a numpy array or tensor; returns the (k, B) object as a
+    tensor of words on ``device``.
     ``num_chunks=None`` is tuned (``autotune.num_chunks_for``).
     ``superchunk_words`` / ``sink`` stream the decode as in
     ``pipelined_encode``: decode applies D per word, so the stripes

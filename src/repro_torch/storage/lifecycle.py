@@ -20,7 +20,7 @@ real data plane. Each ``tick()``:
    soak) with ``reclaim_hot=False``: the replicas stay on disk.
 5. **coded scrub** — missing/corrupt coded shards (wiped disks, writes that
    landed on a down node mid-archival) are healed in ONE batched
-   ``pipelined_repair_many`` run of ``repair_tick`` launches; manifests are
+   ``pipelined_repair_many`` run (one ``repair_chain`` launch); manifests are
    re-replicated to nodes that missed an update while down. A step whose
    manifest is corrupt everywhere is REPORTED (``scrub_errors``), never a
    crash; any other failure (a kernel's CUDA error inside ``archive_many``,
@@ -40,7 +40,7 @@ compromising data reliability".
 The JAX package's engine (``repro.storage.lifecycle``) on the port's
 archive. Where the JAX package encodes on the host unless the mesh holds n
 devices, ``LifecycleConfig.use_devices=None`` (the default) means the card
-here: migration runs ``chain_tick`` and the coded scrub ``repair_tick`` on
+here: migration runs ``chain_tick`` and the coded scrub ``repair_chain`` on
 ``device`` (CUDA unless the caller passes ``device="cpu"``, which runs the
 kernels' plain versions); ``False`` keeps the host oracle and the
 static-coefficient route. Either way the per-tick rows, summaries and store

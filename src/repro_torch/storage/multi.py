@@ -154,7 +154,8 @@ def _build_decode_many(code: ErasureCode, ids: tuple[int, ...], B_obj: int,
                        device: torch.device, placement=None) -> streaming.Program:
     """The staggered decode program: (B_obj, len(ids), sc_words) shards ->
     (B_obj, k, sc_words) words, every shard read in place (node i reads
-    shard i). Placed: one launch a position (``chain.sums_ticks``)."""
+    shard i). Unplaced it keeps no wires; placed, one launch a position
+    (``chain.sums_ticks``)."""
     l, k, n_alive = code.l, code.k, len(ids)
     S = sc_words // gf.LANES[l] // num_chunks
     W = pipeline.window_size(num_chunks, B_obj, stagger)
@@ -169,9 +170,10 @@ def _build_decode_many(code: ErasureCode, ids: tuple[int, ...], B_obj: int,
     def ticks(src, out, wires):
         run(src.transpose(0, 1), out, wires)        # (n_alive, B_obj, Bp), a view
 
+    wire_shape = None if placement is None else (n_alive, W, k, S)
     return streaming.Program(device=device, l=l, sc_words=sc_words,
                              in_lead=(B_obj, n_alive), out_lead=(B_obj, k),
-                             wire_shape=(n_alive, W, k, S), ticks=ticks, placement=placement)
+                             wire_shape=wire_shape, ticks=ticks, placement=placement)
 
 
 @trace.root("decode_many")
@@ -185,11 +187,12 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
     a node failure every object archived on that node set lost the same
     rows). ``shards`` (B_obj, len(ids), B) words, numpy or a tensor ->
     decoded (B_obj, k, B) words on ``device``. The survivors form one
-    chain; each tick is one ``repair_tick`` launch in which every
-    (node, object) with a chunk adds its column of the decode matrix times
-    its shard chunk, read in place, to the k partial sums in slot b % W of
-    the wire; the last node writes object b's decoded chunk. Node 0 starts
-    from zero sums. ``num_chunks=None`` and ``stagger=None`` are tuned
+    chain; every (node, object) adds its column of the decode matrix times
+    its shard, read in place, to object b's k partial sums, and the last
+    node writes object b's decoded blocks. Node 0 starts from zero sums. On
+    the card the whole batch is one ``repair_chain`` launch; on the CPU
+    each tick is one ``repair_tick`` over the object window, the sums in
+    slot b % W of the wire. ``num_chunks=None`` and ``stagger=None`` are tuned
     (``autotune``). ``superchunk_words`` / ``sink`` stream the
     batch stripe by stripe, as in ``pipelined_encode_many``. ``mesh``
     (len(ids) devices) places the survivors' chain positions, as in

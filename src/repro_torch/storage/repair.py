@@ -14,10 +14,12 @@ On one card:
 * ``pipelined_repair`` runs the helper chain backwards — position p is
   played by helper h-1-p and the wire flows toward position 0, the
   replacement (``pipeline.position_nodes(h, reverse=True)``) — as the
-  forward schedule over the chain positions: one ``repair_tick`` launch per
-  tick, each position reading its helper's shard in place through a row
-  table, the wire carrying (|missing|, S) partial sums, so up to n-k lost
-  shards are rebuilt in ONE pass;
+  forward schedule over the chain positions, each position reading its
+  helper's shard in place through a row table and adding its terms to
+  (|missing|, S) partial sums, so up to n-k lost shards are rebuilt in ONE
+  pass: on the card one ``repair_chain`` launch, the sums kept in
+  registers; on the CPU one ``repair_tick`` a tick, the wire carrying the
+  sums;
 * ``star_repair`` applies R to the k helper shards in one ``gf_encode``
   launch;
 * ``degraded_read`` serves a word range of requested object blocks from
@@ -35,8 +37,9 @@ encode run the kernels' plain PyTorch versions.
 
 ``pipelined_repair_many`` repairs the same lost rows of B objects (every
 object archived on a failed node set) as staggered reverse chains over the
-same helpers, one ``repair_tick`` launch a tick over the object window
-(``repro_torch.storage.multi``), reading the helpers' shards in place from
+same helpers (on the card one ``repair_chain`` launch for the batch, on
+the CPU one ``repair_tick`` a tick over the object window,
+``repro_torch.storage.multi``), reading the helpers' shards in place from
 the (B_obj, len(ids), B) batch. Both pipelined repairs take
 ``superchunk_words`` / ``sink`` and stream a host-resident shard set stripe
 by stripe, as ``storage.chain`` does; a streamed repair copies in every
@@ -155,8 +158,8 @@ def _build_repair(code: ErasureCode, missing: tuple[int, ...], ids: tuple[int, .
     survivors' shards, (len(ids), sc_words) or for B_obj objects (B_obj,
     len(ids), sc_words), -> the lost rows, (|missing|, sc_words) or (B_obj,
     |missing|, sc_words). The helpers form a reverse chain, each position
-    reading its helper's shard in place through the row table. Placed: one
-    launch a position (``chain.sums_ticks``)."""
+    reading its helper's shard in place through the row table. Unplaced it
+    keeps no wires; placed, one launch a position (``chain.sums_ticks``)."""
     l = code.l
     rows_table, tables = repair_operands(code, missing, ids, device)
     h, rows = len(rows_table), len(missing)
@@ -170,8 +173,9 @@ def _build_repair(code: ErasureCode, missing: tuple[int, ...], ids: tuple[int, .
         def ticks(src, out, wires):
             run(src[:, None], out[None], wires)  # (len(ids), 1, Bp), (1, rows, Bp)
 
+        wire_shape = None if placement is None else (h, 1, rows, S)
         return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(len(ids),),
-                                 out_lead=(rows,), wire_shape=(h, 1, rows, S), ticks=ticks,
+                                 out_lead=(rows,), wire_shape=wire_shape, ticks=ticks,
                                  placement=placement)
 
     def drive_many(step, wires):
@@ -187,7 +191,8 @@ def _build_repair(code: ErasureCode, missing: tuple[int, ...], ids: tuple[int, .
     W = pipeline.window_size(num_chunks, B_obj, stagger)
     return streaming.Program(device=device, l=l, sc_words=sc_words,
                              in_lead=(B_obj, len(ids)), out_lead=(B_obj, rows),
-                             wire_shape=(h, W, rows, S), ticks=ticks_many, placement=placement)
+                             wire_shape=None if placement is None else (h, W, rows, S),
+                             ticks=ticks_many, placement=placement)
 
 
 def _repair_placement(code: ErasureCode, missing, ids, mesh, device, what: str):
@@ -206,9 +211,10 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
 
     ids: surviving codeword rows; shards (len(ids), B) words (numpy or a
     tensor). The k chosen helpers form a reverse chain toward the
-    replacement node; each tick is one ``repair_tick`` launch over the
-    active helpers, which read their shards where they lie in ``shards``
-    (no gather), and the replacement ends up with the repaired
+    replacement node (on the card one ``repair_chain`` launch, on the CPU
+    one ``repair_tick`` a tick over the active helpers); they read their
+    shards where they lie in ``shards`` (no gather), and the replacement
+    ends up with the repaired
     (|missing|, B) words, returned on ``device``. ``num_chunks=None`` is
     tuned (``autotune.num_chunks_for``). ``superchunk_words`` / ``sink`` stream the
     repair stripe by stripe (``storage.chain.pipelined_encode``), so a lost
@@ -246,9 +252,10 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     ids/missing are shared across objects (after a node failure every
     object archived on that node set lost the same rows). ``shards``
     (B_obj, len(ids), B) words, numpy or a tensor -> repaired
-    (B_obj, |missing|, B) words on ``device``. Each tick is one
-    ``repair_tick`` launch over the object window; each chain position
-    reads its helper's shard of object b in place from ``shards``.
+    (B_obj, |missing|, B) words on ``device``: on the card one
+    ``repair_chain`` launch, on the CPU one ``repair_tick`` a tick over the
+    object window; each chain position reads its helper's shard of object
+    b in place from ``shards``.
     ``num_chunks=None`` and ``stagger=None`` are tuned (``autotune``).
     ``superchunk_words`` / ``sink`` stream the batch stripe by
     stripe. ``mesh`` places the helper chain as in ``pipelined_repair``.

@@ -613,7 +613,7 @@ def test_device_direct_routes_on_the_card(tmp_path, cuda, l):
         kernel.reset_launch_counts()
         got = devio.restore_state(store, 1, on_card, acfg, device=cuda, **kw)
         counts = kernel.launch_counts()
-        assert counts["repair_tick" if route == "chain" else "gf_encode"] >= 1
+        assert counts["repair_chain" if route == "chain" else "gf_encode"] >= 1
         assert got["w"].device.type == "cuda"
         assert_state_equal({k: (v.cpu() if isinstance(v, torch.Tensor) else v)
                             for k, v in got.items()}, state)

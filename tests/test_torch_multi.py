@@ -529,8 +529,9 @@ def test_staggered_tick_over_300_nodes_matches_plain(cuda, which):
 @pytest.mark.parametrize("stagger", [1, 3, 9])
 @pytest.mark.parametrize("n,k,l", [(8, 4, 8), (16, 11, 16)])
 def test_entry_points_many_on_cuda_match_cpu(cuda, n, k, l, stagger):
-    """The three staggered entry points on the card == on the CPU, each in
-    ``num_ticks_many`` launches of its tick kernel."""
+    """The three staggered entry points on the card == on the CPU: the
+    encode in ``num_ticks_many`` launches of its tick kernel, the decode and
+    the repair each in one ``repair_chain`` launch."""
     code = rr.RapidRAIDCode.make(n, k, l=l, seed=11)
     C, n_obj = 8, 5
     objects = words(np.random.default_rng(stagger), (n_obj, k, gf.LANES[l] * C * 33), l)
@@ -542,15 +543,15 @@ def test_entry_points_many_on_cuda_match_cpu(cuda, n, k, l, stagger):
     lost = first_loss(code, n - k, seed=1)
     ids = [i for i in range(n) if i not in lost]
     shards = want.numpy()[:, ids]
-    for run, chain_len in (
-            (lambda dev: multi.pipelined_decode_many(code, ids, shards, C, stagger, device=dev),
-             len(ids)),
-            (lambda dev: repair.pipelined_repair_many(code, ids, shards, lost, C, stagger,
-                                                      device=dev), k)):
+    for run in (
+            lambda dev: multi.pipelined_decode_many(code, ids, shards, C, stagger, device=dev),
+            lambda dev: repair.pipelined_repair_many(code, ids, shards, lost, C, stagger,
+                                                     device=dev)):
         cpu = run("cpu")
         kernel.reset_launch_counts()
         dev = run(cuda)
-        assert kernel.launch_counts()["repair_tick"] == pipeline.num_ticks_many(
-            C, chain_len, n_obj, stagger)
+        # the staggered chains of the batch are one launch
+        assert kernel.launch_counts()["repair_chain"] == 1
+        assert kernel.launch_counts()["repair_tick"] == 0
         assert torch.equal(gf.pack_u32(dev, l).cpu(), gf.pack_u32(cpu, l))
     np.testing.assert_array_equal(cpu.numpy(), want.numpy()[:, lost])
