@@ -12,6 +12,11 @@ in a file of its own, found by the name ``BENCHMARK.json`` gives:
 - ``metrics/<metric>.py``: one reader per metric, ``read(run) -> float |
   None``.
 
+A cell runs on its ``chips`` cards, ``cuda:0`` … ``cuda:{chips-1}``: each is
+synchronised after every call, a call is timed on the first card's clock to
+the end of the work on every card (``joiner``), and the peak is the fullest
+card's.
+
 The program under test is ``repro_torch``, imported from the checkout's
 ``src/``. Nothing here imports JAX or the JAX package (``repro``).
 """
@@ -116,6 +121,10 @@ class Spec:
             self.metrics[kind] = [m for m in manifest[kind]
                                   if name in m.get("workloads", [name])]
 
+    def traffic(self):
+        """The cell's traffic module, ``traffic/<op>.py``."""
+        return load_module("traffic", self.params["op"])
+
 
 class Run:
     """What a window produced, as the metric readers see it."""
@@ -153,19 +162,42 @@ def span(name: str, on: bool):
     return torch.profiler.record_function(name) if on else nullcontext()
 
 
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def sync(devices) -> None:
+    """Waits for every card of ``devices`` (one device, or a list)."""
+    for d in driver_lib.cards(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
-def prepare(spec: Spec, seed: int, device: torch.device):
-    """The cell's traffic driver, found by its ``op``, with its pool laid out."""
+def joiner(devices):
+    """For a cell of several cards, a function that makes the first card's
+    current stream wait for what is queued so far on every other card's
+    current stream; None for one card. Called after a call returns and
+    before the event that ends its time, so that ``call_ms`` runs to the
+    end of every card's work."""
+    devices = driver_lib.cards(devices)
+    if len(devices) < 2 or devices[0].type != "cuda":
+        return None
+    first = devices[0]
+    marks = [(d, torch.cuda.Event()) for d in devices[1:]]
+
+    def join() -> None:
+        stream = torch.cuda.current_stream(first)
+        for d, mark in marks:
+            mark.record(torch.cuda.current_stream(d))
+            stream.wait_event(mark)
+    return join
+
+
+def prepare(spec: Spec, seed: int, devices):
+    """The cell's traffic driver, found by its ``op``, with its pool laid out
+    on ``devices`` (one device, or the cell's cards)."""
     reference = load_module("reference", spec.cfg["reference"])
-    traffic = load_module("traffic", spec.params["op"])
-    return traffic.prepare(driver_lib.Cell(spec.cfg, spec.params, seed, device, reference))
+    return spec.traffic().prepare(driver_lib.Cell(spec.cfg, spec.params, seed, devices,
+                                                  reference))
 
 
-def warm_up(drv, device: torch.device, hold: int, trace: bool) -> None:
+def warm_up(drv, devices, hold: int, trace: bool) -> None:
     """Every shape the window uses, once: the program built, its kernels
     compiled and ``hold + 1`` answers held at once, so the allocator holds
     the blocks that the window's sample keeps; the profiler started once,
@@ -173,20 +205,24 @@ def warm_up(drv, device: torch.device, hold: int, trace: bool) -> None:
     outs = []
     for i in range(hold + 1):
         outs.append(drv.call(i))
-        sync(device)
+        sync(devices)
     del outs
     if trace:
         with tracing.profiler():
             drv.call(0)
-            sync(device)
-    sync(device)
+            sync(devices)
+    sync(devices)
 
 
-def window(device: torch.device, seconds: float, call, sample: Reservoir,
+def window(devices, seconds: float, call, sample: Reservoir,
            stretch: tracing.Stretch | None, run: Run) -> list[str]:
-    """The closed loop: one caller, each call followed by a synchronise,
-    until ``seconds`` have passed. Returns the errors of calls that raised."""
-    cuda = device.type == "cuda"
+    """The closed loop: one caller, each call followed by a synchronise of
+    every card, until ``seconds`` have passed. Returns the errors of calls
+    that raised. A call's time runs on the first card's clock, from an event
+    recorded before the call to one recorded after its return and, on
+    several cards, after the first card's stream has joined every other's."""
+    cuda = driver_lib.cards(devices)[0].type == "cuda"
+    join = joiner(devices)
     errors: list[str] = []
     t0 = time.perf_counter()
     i = 0
@@ -208,10 +244,12 @@ def window(device: torch.device, seconds: float, call, sample: Reservoir,
                 errors.append(f"call {i}: {type(exc).__name__}: {exc}")
                 break
             h1 = time.perf_counter()
+            if join is not None:
+                join()
             if cuda:
                 e1.record()
             with span("portbench.sync", traced):
-                sync(device)
+                sync(devices)
             h2 = time.perf_counter()
         run.call_ms.append(e0.elapsed_time(e1) if cuda else (h2 - h0) * 1e3)
         if not traced:
@@ -235,31 +273,36 @@ def card_line() -> str:
         return f"nvidia-smi: {exc}"
 
 
-def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
+def run_cell(cell: str | Spec, seed: int, seconds: float, trace: bool, *, t_start: float,
              device: torch.device, mode: str = "program",
              overrides: dict | None = None) -> dict:
-    """One run of a cell: set-up, the window, the check, the metrics.
+    """One run of a cell (its name in the manifest, or a ``Spec``): set-up,
+    the window, the check, the metrics. On a card the cell runs on
+    ``cuda:0`` … ``cuda:{chips-1}`` (``device`` is ``cuda:0``); on the CPU
+    (the CPU tests) on ``device`` alone.
 
     ``mode="control"`` puts the plain reference, in the narrower field, in
     the program's place (the control of ``correct``; the benchmark's own
     runs never do). Returns the result's fields and, under ``"notes"``, the
     lines for standard error."""
-    spec = Spec(name, overrides)
+    spec = cell if isinstance(cell, Spec) else Spec(cell, overrides)
+    name = spec.name
+    devices = ([torch.device("cuda", c) for c in range(spec.chips)]
+               if device.type == "cuda" else [device])
     import_program()
     from repro_torch.core import jitcache
     from repro_torch.kernels.gf_encode import kernel
 
     marks = {"imports": time.perf_counter() - t_start}
-    drv = prepare(spec, seed, device)
-    sync(device)
+    drv = prepare(spec, seed, devices)
+    sync(devices)
     marks["inputs"] = time.perf_counter() - t_start
     call = drv.call if mode == "program" else drv.control
     hold = int(spec.params["check_calls"])
     if mode == "program":
-        warm_up(drv, device, hold, trace)
+        warm_up(drv, devices, hold, trace)
     marks["warm"] = time.perf_counter() - t_start
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(devices)
     gc.collect()
 
     run = Run()
@@ -270,12 +313,13 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
 
     built0, counts0 = jitcache.stats()["misses"], kernel.launch_counts()
     sample = Reservoir(hold, seed)
-    stretch = tracing.Stretch(seconds) if trace else None
-    errors = window(device, seconds, call, sample, stretch, run)
+    stretch = tracing.Stretch(seconds, len(devices)) if trace else None
+    errors = window(devices, seconds, call, sample, stretch, run)
     built, counts = jitcache.stats()["misses"] - built0, kernel.launch_counts()
     if stretch is not None:
         run.trace = stretch.summary()
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    card_peaks = [torch.cuda.max_memory_allocated(d) if d.type == "cuda" else 0
+                  for d in devices]
 
     programs = jitcache.stats()
     # the program's state goes before the reference runs
@@ -304,7 +348,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": run.device_name, "count": spec.chips, "memory_peak_bytes": int(peak)}
+           "kind": run.device_name, "count": spec.chips,
+           "memory_peak_bytes": int(max(card_peaks))}
     result = {"correct": bool(correct), "attempted": run.calls + len(errors),
               "failed": len(errors) + wrong_calls, "metrics": metrics, "device": dev}
     if trace and run.trace is not None:
@@ -319,6 +364,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         f"setup_marks_s={','.join(f'{k}:{v:.3f}' for k, v in marks.items())}",
         f"portbench: programs built in the window={built} "
         f"wrapper launches per call={per_call} jitcache={programs}",
+        f"portbench: memory peak by card={dict(zip(map(str, devices), card_peaks))}",
     ]
     result["notes"] = notes
     return result

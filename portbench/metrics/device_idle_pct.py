@@ -1,6 +1,7 @@
 """``device_idle_pct``: the share of the traced stretch of the window in
-which no kernel, copy or memset ran on the card, from the profiler's
-trace."""
+which no kernel, copy or memset ran on a card, from the profiler's trace;
+on several cards each card's share, averaged over the cards
+(``tracing.reduce``'s ``busy_s`` is the mean of each card's busy time)."""
 
 
 def read(run):

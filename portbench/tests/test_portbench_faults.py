@@ -1,9 +1,15 @@
 """A whole run of each cell with the timed path broken underneath comes out
 not correct: once for each fault a cell can have, at a tiny size on the
-CPU, the card's check skipped."""
+CPU, the card's check skipped; and, on a card (marked ``gpu``), with the
+card's own route of a decode or repair, one ``repair_chain`` launch,
+broken."""
+import time
+
 import pytest
 import torch
-from conftest import CELLS, cpu_run
+from conftest import CELLS, TINY, cpu_run
+
+from portbench import harness
 
 from repro_torch.kernels.gf_encode import ops
 from repro_torch.storage import chain, multi, repair
@@ -66,4 +72,37 @@ def answer_altered(monkeypatch, cell):
 def test_fault_is_not_correct(monkeypatch, cell, fault):
     fault(monkeypatch, cell)
     r = cpu_run(cell)
+    assert not r["correct"] and r["checks"]["wrong_words"]["value"] > 0, r["checks"]
+
+
+def chain_launch_skipped(real, calls):
+    """The card's one launch of a decode or repair chain never runs: its sums
+    stay what the buffer held."""
+    def route(shards, *a, **k):
+        calls.append(shards.device)
+    return route
+
+
+def chain_sum_altered(real, calls):
+    """One word of the chain's sums is altered where the launch writes them."""
+    def route(shards, shard_rows, out, *a, **k):
+        calls.append(shards.device)
+        real(shards, shard_rows, out, *a, **k)
+        out.view(-1)[out.numel() // 3] ^= 1
+    return route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", [chain_launch_skipped, chain_sum_altered],
+                         ids=lambda f: f.__name__)
+@pytest.mark.parametrize("cell", ["rr16-restore-1", "rr16-repair-16"])
+def test_card_route_fault_is_not_correct(monkeypatch, cell, fault):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    calls = []
+    monkeypatch.setattr(ops, "repair_chain", fault(ops.repair_chain, calls))
+    r = harness.run_cell(cell, 2**31 + 307, 0.5, False, t_start=time.perf_counter(),
+                         device=torch.device("cuda", 0),
+                         overrides=dict(TINY, block_words=1 << 16))
+    assert calls and all(d.type == "cuda" for d in calls)
     assert not r["correct"] and r["checks"]["wrong_words"]["value"] > 0, r["checks"]

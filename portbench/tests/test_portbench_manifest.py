@@ -68,15 +68,50 @@ def test_per_layer_moves_a_metric_its_cells_report(metric):
         assert metric["unit"] == "%"
 
 
+def four_chip_cells_allowed(manifest: dict) -> bool:
+    """The driver's rule: at most a quarter of the cells, rounded down, ask
+    for four chips, and one always may."""
+    cells = manifest["workloads"]
+    return sum(c["chips"] == 4 for c in cells) <= max(1, len(cells) // 4)
+
+
 @pytest.mark.parametrize("cell", M["workloads"], ids=lambda w: w["name"])
 def test_each_cell(cell):
-    assert cell["chips"] == 1 and set(cell) == {"name", "config", "traffic", "chips", "why"}
+    assert cell["chips"] in (1, 4)
+    assert set(cell) == {"name", "config", "traffic", "chips", "why"}
     e2e = [m["name"] for m in M["end_to_end"] if cell["name"] in cells_of(m)]
     assert "setup_s" in e2e and len(e2e) >= 2
     assert any(cell["name"] in cells_of(m) for m in M["per_layer"])
     params = json.loads((ROOT / "portbench" / "workloads" / f"{cell['name']}.json").read_text())
     assert (params["config"], params["traffic"]) == (cell["config"], cell["traffic"])
     assert (ROOT / "portbench" / "traffic" / f"{params['op']}.py").exists()
+
+
+PLACED = {"name": "rr16-archive-placed-4chip", "config": "rapidraid-16-11",
+          "traffic": "archive-placed-16", "chips": 4,
+          "why": "16 objects a call over 16 nodes placed four to a card in chain order"}
+
+
+def cells(chips):
+    """Synthetic cells, one per entry of ``chips``."""
+    return [dict(PLACED, name=f"cell-{i}", traffic=f"mix-{i}", chips=c)
+            for i, c in enumerate(chips)]
+
+
+@pytest.mark.parametrize("workloads,allowed", [
+    (M["workloads"], True),
+    (M["workloads"] + [PLACED], True),              # 1 of 4
+    ([PLACED], True),                               # one always may
+    (cells([4, 4]), False),
+    (M["workloads"] + [PLACED, dict(PLACED, name="rr16-restore-placed-4chip")], False),
+    (cells([1] * 6 + [4, 4]), True),                # 2 of 8
+    (cells([1] * 5 + [4, 4, 4]), False),            # 3 of 8
+    (cells([1] * 11 + [4]), True),                  # 1 of 12
+], ids=["manifest", "manifest+placed", "placed-alone", "two-of-two", "two-of-five",
+        "two-of-eight", "three-of-eight", "one-of-twelve"])
+def test_four_chip_cells_within_the_rule(workloads, allowed):
+    assert four_chip_cells_allowed({"workloads": workloads}) is allowed
+    assert all(w["chips"] in (1, 4) for w in workloads)
 
 
 def test_pairs_once_and_every_config_used():

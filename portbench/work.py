@@ -2,7 +2,10 @@
 
 A call's least time on the card is the bytes its result needs over the
 card's memory bandwidth: each input block read once and each output block
-written once. Nothing else is counted:
+written once. On several cards it stays the bytes over one card's
+bandwidth, card-seconds, as the kernels' times it is compared with are
+summed over the cards (``tracing.reduce``'s ``kernel_s``). Nothing else is
+counted:
 
 - not the bytes the kernels move today (the chain's wires, the partial sums
   of a decode, tables re-read per tick), so a change that fuses, swaps or
