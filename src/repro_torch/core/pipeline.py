@@ -42,30 +42,58 @@ copy, the consumer's earlier launch before it is overwritten). Ticks stay
 ``num_chunks + n - 1`` (``num_ticks_many`` staggered); without a placement
 the run is the one-launch-a-tick path above.
 
+Grouped placement (a card layout, ``staggered_pipeline``'s ``groups``):
+the chain positions split into runs of consecutive positions, one ``Group``
+a card, and each group's positions are the node axis of that card. A tick
+is one launch a group over its active nodes (the caller passes the global
+tick and node range, and launches at tick t - first on the group's own
+operands), so a card runs its nodes as one card runs the whole chain. A
+group's wires are (count + 1, W, ...) on its card: row 0 the incoming wire
+of its first node, row i + 1 node i's forward, row count the forward of
+its last node (the last group's wires have count rows: the chain's last
+forward is never read). At each boundary a **hop** copies the last node's
+forward of tick t into the next group's row 0 of the same parity, which
+its first node reads at tick t + 1; only the window slots that carried a
+chunk at tick t (the objects of ``active_objects``, a cyclic range of
+slots, so at most two copies). Between two cards the hop is a peer copy
+on the consumer's current stream (``kernel.copy_async``), ordered by
+events: after the producer's launch for tick t, before the consumer's
+launch for tick t + 1 (stream order), after the consumer's launch for
+tick t - 1, which read that row (stream order), and before the producer's
+launch for tick t + 2, which writes the forward row again. When the run
+ends each producer's stream waits for its last hops, so a call leaves all
+its work on each card's current stream. On one device (the CPU, or groups
+sharing a card) the hop is a copy on its stream.
+
 ``stats()["wire_bytes_zeroed"]`` counts the bytes of wire that
 ``make_wires`` zero-fills, process-wide (``reset_stats`` sets it to 0). A
 monolithic call makes fresh wires and pays it every call; a streamed
-program's stripes make theirs once.
+program's stripes make theirs once. ``stats()["wire_bytes_hopped"]``
+counts the bytes the hops copy between groups: per archived batch,
+(groups - 1) x B_obj x block bytes.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch.core import trace
 
-_stats = {"wire_bytes_zeroed": 0}
+_stats = {"wire_bytes_zeroed": 0, "wire_bytes_hopped": 0}
 
 
 def stats() -> dict[str, int]:
-    """The wire counter (process-wide): bytes zero-filled by ``make_wires``."""
+    """The wire counters (process-wide): bytes zero-filled by ``make_wires``
+    and ``group_wires``, and bytes hopped between groups."""
     return dict(_stats)
 
 
 def reset_stats() -> None:
-    _stats["wire_bytes_zeroed"] = 0
+    for key in _stats:
+        _stats[key] = 0
 
 
 def num_ticks(num_chunks: int, n_stages: int) -> int:
@@ -237,7 +265,8 @@ def active_nodes_many(t: int, n: int, num_chunks: int, num_objects: int,
 
 def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
                        slot_shape: tuple[int, ...], *, num_objects: int,
-                       stagger: int, device: torch.device, wires=None, placement=None) -> int:
+                       stagger: int, device: torch.device, wires=None, placement=None,
+                       groups=None) -> int:
     """Interleave ``num_objects`` chain pipelines over the node axis; returns
     the number of ticks, ``num_ticks_many(...)``, against
     ``num_objects * num_ticks(...)`` for a loop of single-object runs.
@@ -250,13 +279,173 @@ def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
     ``window_size(...)``; row 0 stays zero for the whole run. ``wires`` and
     ``placement`` as in ``software_pipeline``: placed, each position's wires
     carry its W slots, and the copy moves all of them.
+
+    ``groups`` (``even_groups``, in place of a placement): a card layout.
+    Each tick is then one ``step_fn(wire_in, wire_out, t, lo, count)`` call
+    a group with an active node, over the group's active nodes [lo, lo +
+    count) (global positions and tick; the caller launches at tick t minus
+    the group's first position, on the group's operands) with the group's
+    wires (``group_wires``), and the hops after the tick's launches carry
+    each boundary's forward to the next group. The wires are made a call
+    (``wires`` must be None).
     """
     if n < 1 or num_chunks < 1 or num_objects < 1 or stagger < 1:
         raise ValueError(f"need n, num_chunks, num_objects and stagger >= 1, got "
                          f"{n}, {num_chunks}, {num_objects}, {stagger}")
     W = window_size(num_chunks, num_objects, stagger)
+    ticks = num_ticks_many(num_chunks, n, num_objects, stagger)
+
+    def active(t):
+        return active_nodes_many(t, n, num_chunks, num_objects, stagger)
+    if groups is not None:
+        if wires is not None or placement is not None:
+            raise ValueError("grouped ticks make their own wires and take no placement")
+        if sum(g.count for g in groups) != n:
+            raise ValueError(f"groups of {[g.count for g in groups]} positions for a chain of {n}")
+        with trace.span("repro_torch.wires"):
+            wires = group_wires((n, W) + tuple(slot_shape), groups)
+        return _run_grouped(step_fn, ticks, active, wires, groups,
+                            lambda t, i: active_objects(t, i, num_chunks, num_objects, stagger))
     with trace.span("repro_torch.wires"):
         wires = _wires((n, W) + tuple(slot_shape), device, wires, placement)
-    return _run(step_fn, n, num_ticks_many(num_chunks, n, num_objects, stagger),
-                lambda t: active_nodes_many(t, n, num_chunks, num_objects, stagger),
-                wires, placement)
+    return _run(step_fn, n, ticks, active, wires, placement)
+
+
+# ---------------------------------------------------------------------------
+# Grouped placement: a card layout, one launch a card a tick, hops between
+# ---------------------------------------------------------------------------
+
+
+class Group(NamedTuple):
+    """Chain positions [first, first + count), the node axis of ``device``."""
+    device: torch.device
+    first: int
+    count: int
+
+
+def even_groups(n: int, devices) -> tuple[Group, ...]:
+    """n chain positions split into ``len(devices)`` equal runs of
+    consecutive positions, run c on ``devices[c]`` (a device may appear
+    more than once); raises where n does not divide."""
+    devices = [torch.device(d) for d in devices]
+    if not devices or n % len(devices):
+        raise ValueError(f"{n} chain positions do not split evenly over "
+                         f"{len(devices)} cards")
+    m = n // len(devices)
+    return tuple(Group(d, c * m, m) for c, d in enumerate(devices))
+
+
+def active_objects(t: int, i: int, num_chunks: int, num_objects: int,
+                   stagger: int) -> tuple[int, int]:
+    """(first object, object count) of the objects with a chunk at node i at
+    tick t of a staggered run: 0 <= t - i - b * stagger < num_chunks."""
+    d = t - i
+    lo = max(0, -(-(d - num_chunks + 1) // stagger))
+    hi = min(num_objects - 1, d // stagger) if d >= 0 else -1
+    return lo, max(0, hi - lo + 1)
+
+
+def slot_runs(first: int, count: int, W: int) -> list[tuple[int, int]]:
+    """The wire slots of objects [first, first + count), object b in slot
+    b % W (count <= W): at most two runs (start slot, slots)."""
+    if count <= 0:
+        return []
+    a = first % W
+    head = min(count, W - a)
+    return [(a, head)] + ([(0, count - head)] if count > head else [])
+
+
+def group_wires(shape: tuple[int, ...], groups) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Each group's two zeroed wire buffers on its device, for wires of
+    ``shape`` (n, ...) on one device: (count + 1, ...), row count carrying
+    the last node's forward to the next group; the last group's (count,
+    ...)."""
+    rest, last = tuple(shape[1:]), len(groups) - 1
+    shapes = [(g.count + (c < last),) + rest for c, g in enumerate(groups)]
+    _stats["wire_bytes_zeroed"] += sum(2 * 4 * math.prod(s) for s in shapes)
+    return [tuple(torch.zeros(s, dtype=torch.int32, device=g.device) for _ in range(2))
+            for s, g in zip(shapes, groups)]
+
+
+@functools.lru_cache(maxsize=None)
+def _peer_access(card: torch.device, peer: torch.device) -> None:
+    """Lets ``card`` reach ``peer``'s memory directly (NVLink), once a
+    process: PyTorch enables it for a copy's source card at the first copy
+    between the two, so one word is copied from ``card`` to ``peer``."""
+    torch.empty(1, device=peer).copy_(torch.zeros(1, device=card))
+
+
+class _Hop:
+    """The boundary from group ``src`` to group ``dst``: copies of the
+    producer's forward row into the consumer's row 0. Between two cards a
+    copy runs on the consumer's current stream, after an event on the
+    producer's (its launch for the tick), and the producer's next write of
+    that parity's forward row waits for an event after the copy."""
+
+    def __init__(self, src: Group, dst: Group):
+        self.devices = (src.device, dst.device)
+        self.across = src.device.type == "cuda" and src.device != dst.device
+        if self.across:
+            from repro_torch.kernels.gf_encode import kernel
+            self.copy_async = kernel.copy_async
+            _peer_access(dst.device, src.device)
+            self.ready = torch.cuda.Event()
+            self.done = [torch.cuda.Event(), torch.cuda.Event()]
+            self.pending = [False, False]     # a copy still reads that parity's row
+
+    def before_write(self, t: int) -> None:
+        """Before the producer's launch at tick t, which writes its forward
+        row of parity t % 2: wait for the copy that last read it."""
+        if self.across and self.pending[t % 2]:
+            torch.cuda.current_stream(self.devices[0]).wait_event(self.done[t % 2])
+            self.pending[t % 2] = False
+
+    def copy(self, src_row: torch.Tensor, dst_row: torch.Tensor, runs, t: int) -> None:
+        """The slots of ``runs`` of the forward row ``src_row`` (W, ...)
+        written at tick t into ``dst_row``, the consumer's row 0."""
+        _stats["wire_bytes_hopped"] += sum(m for _, m in runs) * src_row[0].nbytes
+        if not self.across:
+            for a, m in runs:
+                dst_row[a:a + m].copy_(src_row[a:a + m])
+            return
+        prod, cons = (torch.cuda.current_stream(d) for d in self.devices)
+        self.ready.record(prod)
+        cons.wait_event(self.ready)
+        for a, m in runs:
+            self.copy_async(dst_row[a:a + m], src_row[a:a + m], cons)
+        self.done[t % 2].record(cons)
+        self.pending[t % 2] = True
+
+    def finish(self) -> None:
+        """The producer's stream waits for the copies still reading its
+        wires, so that the run's work is on each card's current stream."""
+        for parity in (0, 1):
+            self.before_write(parity)
+
+
+def _run_grouped(step_fn: Callable, ticks: int, active: Callable, wires: list,
+                 groups, carried: Callable) -> int:
+    """The grouped tick loop: per tick one ``step_fn`` call a group with an
+    active node, then each boundary's hop of the slots that carried a
+    chunk (``carried(t, i)``: node i's objects at tick t), each in a
+    ``repro_torch.hop`` span under the tick's ``repro_torch.tick``."""
+    tick, hop = trace.spans("repro_torch.tick"), trace.spans("repro_torch.hop")
+    hops = [_Hop(a, b) for a, b in zip(groups, groups[1:])]
+    W = wires[0][0].shape[1]
+    for t in range(ticks):
+        lo, count = active(t)
+        with tick():
+            for g, (grp, pair) in enumerate(zip(groups, wires)):
+                a, b = max(lo, grp.first), min(lo + count, grp.first + grp.count)
+                if a < b:
+                    if g < len(hops):
+                        hops[g].before_write(t)
+                    step_fn(pair[(t + 1) % 2], pair[t % 2], t, a, b - a)
+            for g, h in enumerate(hops):
+                runs = slot_runs(*carried(t, groups[g].first + groups[g].count - 1), W)
+                if runs:
+                    with hop():
+                        h.copy(wires[g][t % 2][-1], wires[g + 1][t % 2][0], runs, t)
+    for h in hops:
+        h.finish()
+    return ticks

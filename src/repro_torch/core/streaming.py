@@ -18,6 +18,8 @@ is the cross-stripe scheduling model).
   stripe, pinned host staging for both, and one CUDA graph of the whole
   tick sequence over that slot's buffers (``kernel.Graph``), so a stripe
   costs one replay and none of the wrappers' Python.
+* ``CardProgram`` is the program over a card layout: one resident input
+  and output tensor a card, never streamed.
 * ``execute`` drives the stripes double-buffered on CUDA streams: stripe
   s's host input is staged into pinned memory and copied in on a copy
   stream; its graph replays on the current stream after the copy's event;
@@ -214,6 +216,44 @@ class Program:
         if st is None:
             st = self._stripes[depth] = _Stripes(self, depth)
         return st
+
+
+class CardProgram:
+    """A program over a card layout (``storage.chain.CardLayout``): its input
+    and output are one resident tensor a card. ``ticks(srcs, outs, wires)``
+    runs the tick sequence over the cards' packed inputs (``in_leads[c]`` +
+    (lanes,), read in place) and outputs (``out_leads[c]`` + (lanes,),
+    written in place), with wires made a call (``wires`` None). It has no
+    stripes: a resident batch is not streamed."""
+
+    def __init__(self, *, cards, l: int, sc_words: int, in_leads, out_leads,
+                 ticks: Callable):
+        self.cards = tuple(cards)
+        self.l = l
+        self.sc_words = sc_words
+        self.in_leads = tuple(tuple(x) for x in in_leads)
+        self.out_leads = tuple(tuple(x) for x in out_leads)
+        self.ticks = ticks
+
+    def _cache_size(self) -> int:
+        return 1
+
+    def __call__(self, xs) -> list[torch.Tensor]:
+        """Words ``in_leads[c] + (sc_words,)`` on card c, one tensor a card,
+        read in place -> words ``out_leads[c] + (sc_words,)`` on card c."""
+        shapes = [lead + (self.sc_words,) for lead in self.in_leads]
+        if len(xs) != len(self.cards) or any(
+                tuple(x.shape) != shape or x.device != d
+                for x, shape, d in zip(xs, shapes, self.cards)):
+            raise ValueError(f"program inputs {[(tuple(x.shape), str(x.device)) for x in xs]}, "
+                             f"want {[(s, str(d)) for s, d in zip(shapes, self.cards)]}")
+        with trace.span("repro_torch.buffers"):
+            srcs = [gf.pack_u32(x, self.l) for x in xs]
+            outs = [torch.empty(lead + (src.shape[-1],), dtype=torch.int32, device=d)
+                    for lead, src, d in zip(self.out_leads, srcs, self.cards)]
+        self.ticks(srcs, outs, None)
+        with trace.span("repro_torch.unpack"):
+            return [gf.unpack_u32(out, self.l) for out in outs]
 
 
 class _Stripes:

@@ -20,6 +20,10 @@ sits under its root, ``repro_torch.<entry>``:
   (``pipeline.make_wires``);
 - ``repro_torch.tick``: one a tick, around its launches (placed: and the
   copies along the chain);
+- ``repro_torch.hop``: under a tick over a card layout, one a card
+  boundary whose forward carried a chunk at that tick, around the host's
+  side of its copies to the next card (``pipeline._run_grouped``; the
+  bytes are ``pipeline.stats()["wire_bytes_hopped"]``);
 - ``repro_torch.unpack``: the output's word view.
 """
 from __future__ import annotations

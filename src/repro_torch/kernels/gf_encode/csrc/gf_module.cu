@@ -1,5 +1,6 @@
 // Load and launch the per-matrix gf_encode kernels (gf_encode.cu, compiled
-// at first use of a matrix by kernel.py) through the CUDA driver API.
+// at first use of a matrix by kernel.py) through the CUDA driver API, and
+// copy wire rows between cards on a stream the caller names.
 //
 // The cubin is loaded into the current device's primary context (the one
 // PyTorch uses), and each launch goes on the caller's stream with a grid of
@@ -39,4 +40,15 @@ extern "C" int gf_module_launch_encode(void* fn, const void* data, void* out, lo
   void* args[] = {&data, &out, &Bp, &O};
   return static_cast<int>(cuLaunchKernel(f, static_cast<unsigned>(grid), 1, 1, threads, 1, 1, 0,
                                          static_cast<CUstream>(stream), args, nullptr));
+}
+
+// `bytes` bytes from `src` to `dst` on the caller's stream, which may belong
+// to either pointer's card: with unified addressing the driver finds both
+// cards, and between two cards it is a peer copy (over NVLink where the
+// stream's card may access the other's memory).
+extern "C" int gf_copy_async(void* dst, const void* src, long long bytes, void* stream) {
+  return static_cast<int>(cuMemcpyAsync(reinterpret_cast<CUdeviceptr>(dst),
+                                        reinterpret_cast<CUdeviceptr>(src),
+                                        static_cast<size_t>(bytes),
+                                        static_cast<CUstream>(stream)));
 }

@@ -127,6 +127,8 @@ def load_library() -> ctypes.CDLL:
     lib.gf_module_load.restype = i32
     lib.gf_module_launch_encode.argtypes = [vp, vp, vp, i64, i32, i64, i32, vp]
     lib.gf_module_launch_encode.restype = i32
+    lib.gf_copy_async.argtypes = [vp, vp, i64, vp]
+    lib.gf_copy_async.restype = i32
     _lib = lib
     return lib
 
@@ -523,6 +525,27 @@ repair_chain.launches = 0
 # ---------------------------------------------------------------------------
 # gf_encode: one kernel per (matrix, field), compiled at first use
 # ---------------------------------------------------------------------------
+
+def copy_async(dst: torch.Tensor, src: torch.Tensor, stream: torch.cuda.Stream) -> None:
+    """Copies ``src`` into ``dst`` on ``stream`` and orders it against
+    nothing else: contiguous tensors of one dtype and size, on one card or
+    on two (a peer copy), ``stream`` on either card. The caller orders the
+    copy against the cards' streams with events. (``Tensor.copy_`` between
+    two cards runs on the source card's current stream and makes both
+    cards' current streams wait for each other first.)"""
+    for name, x in (("dst", dst), ("src", src)):
+        if x.device.type != "cuda" or not x.is_contiguous():
+            raise ValueError(f"copy_async: {name} must be a contiguous CUDA tensor, "
+                             f"got one on {x.device}")
+    if dst.dtype != src.dtype or dst.shape != src.shape:
+        raise ValueError(f"copy_async: {src.dtype} {tuple(src.shape)} into "
+                         f"{dst.dtype} {tuple(dst.shape)}")
+    lib = load_library()
+    with torch.cuda.device(stream.device):
+        _raise_on("copy_async", lib.gf_copy_async(dst.data_ptr(), src.data_ptr(),
+                                                  src.numel() * src.element_size(),
+                                                  stream.cuda_stream))
+
 
 ENCODE_TEMPLATE = CSRC / "gf_encode.cu"
 ENCODE_DIR = BUILD_DIR / "gf_encode"

@@ -46,6 +46,19 @@ output copied back. The same device may hold several positions: a mesh of
 unplaced result. A streamed run captures one CUDA graph a stripe buffer
 where every position shares the program's device, and none otherwise (a
 graph cannot span devices): its stripes then run the ticks eagerly.
+
+A card layout (``CardLayout``: the paper's deployment, the nodes grouped
+onto cards) keeps the data where the nodes hold it. The chain positions
+split into equal runs of consecutive positions, one a card; card c holds,
+going in, the replica blocks its positions hold (``layout.blocks[c]``,
+ascending object-block ids, each once however many of its positions hold
+it) and, coming out, its positions' codeword rows. Each card runs one
+``chain_tick`` a tick over its active nodes, reading its replica blocks in
+place through its own slot table (``layout.slots[c]``, renumbered on the
+card), and the wire hops from card to card (``pipeline.staggered_pipeline``'s
+``groups``): no block is gathered and no row is copied back to a first
+card. ``storage.multi.pipelined_encode_many(..., layout=)`` is its entry
+point.
 """
 from __future__ import annotations
 
@@ -163,15 +176,67 @@ def held(x: torch.Tensor, pos: Position, dim: int) -> torch.Tensor:
     return x.index_select(dim, idx).to(pos.device)
 
 
+class CardLayout:
+    """The chain's n positions on ``cards`` (one device a card; the same
+    device may appear more than once), split into ``len(cards)`` equal runs
+    of consecutive positions (``groups``, ``pipeline.Group``); raises where
+    n does not divide. ``blocks[c]``: the ascending object-block ids that
+    card c's positions hold, each once (a card's input rows, in that
+    order); ``slots[c]``: its positions' rows of ``placement_slots``,
+    renumbered into ``blocks[c]``, frozen host int32."""
+
+    def __init__(self, code: ErasureCode, cards):
+        if not code.supports_chain_encode:
+            raise ValueError(f"CardLayout: {code.family} has no chain schedule")
+        self.code_key = code.cache_key
+        self.cards = tuple(_resolve_device(d) for d in cards)
+        if len({d.type for d in self.cards}) > 1:
+            raise ValueError(f"CardLayout: cards of several kinds {set(self.cards)}")
+        self.groups = pipeline.even_groups(code.n, self.cards)
+        table = placement_slots(code)
+        blocks, slots = [], []
+        for g in self.groups:
+            rows = table[g.first:g.first + g.count]
+            held = sorted({int(v) for v in rows.ravel() if v >= 0})
+            local = np.array([[held.index(v) if v >= 0 else -1 for v in row] for row in rows],
+                             dtype=np.int32)
+            local.setflags(write=False)
+            blocks.append(tuple(held))
+            slots.append(local)
+        self.blocks, self.slots = tuple(blocks), tuple(slots)
+
+    @property
+    def key(self) -> tuple:
+        """What a program over this layout is keyed by, beside the code."""
+        return ("cards",) + self.cards
+
+
 def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch.device,
-                 placement, drive):
+                 placement, drive, layout: CardLayout | None = None):
     """The tick loop of an encode program, ``ticks(src, out_nodes, wires)``
     over ``src`` (B_obj, k, Bp) and ``out_nodes`` (n, B_obj, Bp), which
     ``drive(step, wires)`` runs through the pipeline driver. Unplaced: one
     ``chain_tick`` launch over the active nodes a tick. Placed: one a
     position, each reading its own replica blocks and writing its codeword
-    rows."""
+    rows. Over a card ``layout``, ``src`` and ``out_nodes`` are lists, one
+    a card, (B_obj, len(layout.blocks[c]), Bp) and (positions, B_obj, Bp)
+    on card c, and each card's launch at a tick runs over its active nodes
+    at tick t minus its first position, on its own slots and tables."""
     l = code.l
+    if layout is not None:
+        m = layout.groups[0].count
+        cards = [(g.first, layout.slots[c],
+                  device_tables(product_tables(code)[g.first:g.first + g.count], g.device))
+                 for c, g in enumerate(layout.groups)]
+
+        def card_ticks(srcs, outs, wires):
+            def step(wire_in, wire_out, t, lo, count):
+                c = lo // m
+                first, slots_c, tables_c = cards[c]
+                ops.chain_tick(wire_in, wire_out, srcs[c], slots_c, outs[c], tables_c, l,
+                               t - first, num_chunks, lo - first, count, stagger)
+            drive(step, wires)
+        return card_ticks
     slots = placement_slots(code)
     tables = device_tables(product_tables(code), device)
     if placement is None:

@@ -41,16 +41,25 @@ hand-tuned defaults are ``chain.DEFAULT_NUM_CHUNKS`` and a stagger of 1.
 shard and codeword rows on its device, and a tick is one launch per
 position over its object window, the window's slots crossing to the next
 position by one copy.
+
+``layout=`` on ``pipelined_encode_many`` (a ``chain.CardLayout``) archives
+a batch resident on the cards as the nodes hold it (paper §IV): the input
+is one (B_obj, len(layout.blocks[c]), B) tensor a card, card c's replica
+blocks, and the output one (B_obj, positions, B) tensor a card, its
+positions' codeword rows, left on that card. A tick is one launch a card
+over its active nodes, and the wire hops between cards
+(``pipeline.staggered_pipeline``'s ``groups``). Its programs are keyed by
+the layout's cards; it takes the same tuner, and no stripes.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import autotune, gf, pipeline, streaming, trace
+from repro_torch.core import autotune, gf, jitcache, pipeline, streaming, trace
 from repro_torch.core.codes import ErasureCode
-from repro_torch.storage.chain import (decode_tables, device_tables, encode_ticks,
-                                       identity_rows, resolve_placement, run_program,
-                                       stream_plan, sums_ticks)
+from repro_torch.storage.chain import (CardLayout, decode_tables, device_tables,
+                                       encode_ticks, identity_rows, resolve_placement,
+                                       run_program, stream_plan, sums_ticks)
 
 DEFAULT_STAGGER = 1
 
@@ -81,14 +90,34 @@ def batch_words(x, l: int, rows: int, what: str, name: str, rows_name: str,
     return x
 
 
+def resident_batch(layout: CardLayout, objects, l: int, what: str) -> list[torch.Tensor]:
+    """A batch resident on a layout's cards: one (B_obj, len(blocks[c]), B)
+    tensor of words a card, on card c, every card's B_obj and B alike."""
+    if isinstance(objects, torch.Tensor) or len(objects) != len(layout.cards):
+        raise ValueError(f"{what}: with a layout of {len(layout.cards)} cards, objects must "
+                         f"be a list of one tensor a card")
+    out = []
+    for c, (x, d) in enumerate(zip(objects, layout.cards)):
+        x = batch_words(x, l, len(layout.blocks[c]), what, f"card {c}'s blocks",
+                        f"len(layout.blocks[{c}])")
+        if x.device != d or (out and x.shape[::2] != out[0].shape[::2]):
+            raise ValueError(f"{what}: card {c}'s blocks {tuple(x.shape)} on {x.device}, "
+                             f"want (B_obj, {len(layout.blocks[c])}, B) on {d}")
+        out.append(x)
+    return out
+
+
 def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks: int,
-                       stagger: int, device: torch.device,
-                       placement=None) -> streaming.Program:
+                       stagger: int, device: torch.device, placement=None,
+                       layout: CardLayout | None = None):
     """The staggered encode program: (B_obj, k, sc_words) -> (B_obj, n,
     sc_words) words. Every (node, object) with a chunk at a tick reads its
     replica blocks in place, writes its codeword chunk into object b's row
     of the output and forwards its wire in slot b % W. Placed: one launch
-    a position (``chain.encode_ticks``)."""
+    a position (``chain.encode_ticks``). Over a card ``layout``, a
+    ``streaming.CardProgram``: card c's (B_obj, len(layout.blocks[c]),
+    sc_words) -> its (B_obj, positions, sc_words), one launch a card a
+    tick."""
     n = code.n
     S = sc_words // gf.LANES[code.l] // num_chunks
     W = pipeline.window_size(num_chunks, B_obj, stagger)
@@ -96,8 +125,16 @@ def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks:
     def drive(step, wires):
         pipeline.staggered_pipeline(step, n, num_chunks, (S,), num_objects=B_obj,
                                     stagger=stagger, device=device, wires=wires,
-                                    placement=placement)
-    run = encode_ticks(code, num_chunks, stagger, device, placement, drive)
+                                    placement=placement,
+                                    groups=None if layout is None else layout.groups)
+    run = encode_ticks(code, num_chunks, stagger, device, placement, drive, layout)
+    if layout is not None:
+        def card_ticks(srcs, outs, wires):
+            run(srcs, [out.transpose(0, 1) for out in outs], wires)   # (positions, B_obj, Bp)
+        return streaming.CardProgram(
+            cards=layout.cards, l=code.l, sc_words=sc_words, ticks=card_ticks,
+            in_leads=[(B_obj, len(b)) for b in layout.blocks],
+            out_leads=[(B_obj, g.count) for g in layout.groups])
 
     def ticks(src, out, wires):
         run(src, out.transpose(0, 1), wires)        # out as (n, B_obj, Bp), a view
@@ -111,7 +148,7 @@ def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks:
 def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = None,
                           stagger: int | None = None, device=None,
                           superchunk_words: int | None = None,
-                          sink=None, mesh=None, order=None) -> torch.Tensor | None:
+                          sink=None, mesh=None, order=None, layout: CardLayout | None = None):
     """Archive B_obj objects concurrently: (B_obj, k, B) -> (B_obj, n, B).
 
     ``objects`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
@@ -127,6 +164,15 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     result instead of an assembled batch. ``mesh`` / ``order`` place the
     chain positions on devices for every object of the batch, as in
     ``chain.pipelined_encode``.
+
+    ``layout`` (a ``chain.CardLayout`` of ``code``) archives a batch
+    resident on its cards: ``objects`` is a list of one (B_obj,
+    len(layout.blocks[c]), B) tensor a card, on card c, and the result a
+    list of one (B_obj, positions, B) tensor a card, card c's positions'
+    codeword rows, on card c (row i of card c is codeword row
+    ``layout.groups[c].first + i``). No ``device``, ``mesh``, ``order``,
+    ``superchunk_words`` or ``sink`` beside it. The call leaves its work on
+    each card's current stream.
     """
     with trace.span("repro_torch.resolve"):
         if not code.supports_chain_encode:
@@ -134,19 +180,33 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
                 f"pipelined_encode_many: {code.family} has no chain schedule — "
                 f"use code.encode_np or the fused-kernel archive path")
         what = "pipelined_encode_many"
-        dev, placement, mesh = resolve_placement(code.n, mesh, order, device, what)
-        objects = batch_words(objects, code.l, code.k, what, "objects", "k")
-        B_obj, _, B = objects.shape
+        if layout is not None:
+            if any(v is not None for v in (device, superchunk_words, sink, mesh, order)):
+                raise ValueError(f"{what}: a layout takes no device, mesh, order, "
+                                 f"superchunk_words or sink")
+            if layout.code_key != code.cache_key:
+                raise ValueError(f"{what}: the layout was made for another code")
+            objects = resident_batch(layout, objects, code.l, what)
+            dev, placement, mesh = layout.cards[0], None, layout.key
+            B_obj, B = objects[0].shape[0], objects[0].shape[2]
+        else:
+            dev, placement, mesh = resolve_placement(code.n, mesh, order, device, what)
+            objects = batch_words(objects, code.l, code.k, what, "objects", "k")
+            B_obj, _, B = objects.shape
         if num_chunks is None:
             num_chunks = autotune.num_chunks_for("encode_many", code, B, extra_key=(B_obj,),
                                                  device=dev)
         plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
         stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
-    return run_program(
-        ("encode_many", code.cache_key, mesh, B_obj, plan.sc_words, num_chunks, stagger, dev),
-        lambda: _build_encode_many(code, B_obj, plan.sc_words, num_chunks, stagger, dev,
-                                   placement),
-        objects, plan, sink, dev)
+    key = ("encode_many", code.cache_key, mesh, B_obj, plan.sc_words, num_chunks, stagger, dev)
+
+    def build():
+        return _build_encode_many(code, B_obj, plan.sc_words, num_chunks, stagger, dev,
+                                  placement, layout)
+    if layout is not None:      # resident on its cards: no stripes, nothing moved
+        with trace.span("repro_torch.lookup"):
+            return jitcache.get(key, build)(objects)
+    return run_program(key, build, objects, plan, sink, dev)
 
 
 def _build_decode_many(code: ErasureCode, ids: tuple[int, ...], B_obj: int,

@@ -223,7 +223,7 @@ def test_reset_stats():
     pipeline.make_wires((2, 3), torch.device("cpu"))
     assert pipeline.stats()["wire_bytes_zeroed"] > 0
     pipeline.reset_stats()
-    assert pipeline.stats() == {"wire_bytes_zeroed": 0}
+    assert pipeline.stats() == {"wire_bytes_zeroed": 0, "wire_bytes_hopped": 0}
 
 
 # ---------------------------------------------------------------------------

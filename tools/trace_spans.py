@@ -13,9 +13,13 @@ trace and prints one JSON line: the card's name and power limit,
 ``tracing.reduce``'s numbers (``device_idle_pct``, ``launches_per_call``,
 the device time a call), ``spans.program``'s readings of the program's spans
 (``prologue_ms``, ``tick_host_us``, ``idle_in_program_pct``, the idle split
-by innermost span, the launches outside every program span), and the wire
-counter over the window a call (``wire_zero_MB_per_call``). No check of the
-answers: ``portbench/run.py`` decides ``correct``. Needs a CUDA card.
+by innermost span, the launches outside every program span), the wire
+counters over the window a call (``wire_zero_MB_per_call``,
+``wire_hopped_bytes_per_call``) and, for a cell over a card layout, the
+host's time in the ``repro_torch.hop`` spans a traced call
+(``hop_span_ms_per_call``). A cell of several cards runs on its cards, as
+``run.py`` runs it. No check of the answers: ``portbench/run.py`` decides
+``correct``. Needs a CUDA card (as many as the cell asks for).
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from portbench import harness, spans, tracing  # noqa: E402
+from portbench import driver, harness, spans, tracing  # noqa: E402
 
 SINGLE = {"n": 8, "k": 4, "l": 16, "block_words": 1 << 25, "pool": 16}
 
@@ -55,28 +59,37 @@ class Single:
         return self.entry(self.code, self.pool[i % SINGLE["pool"]], device=self.device)
 
 
-def traced_loop(drv, device: torch.device, seconds: float, seed: int) -> dict:
-    """The benchmark's warm-up and window over ``drv.call``, the stretch's
-    events reduced both ways, and the wire counter's delta a call."""
+def traced_loop(drv, devices, seconds: float, seed: int) -> dict:
+    """The benchmark's warm-up and window over ``drv.call`` on ``devices``
+    (one device, or a cell's cards), the stretch's events reduced both
+    ways, and the wire counters' deltas a call."""
     from repro_torch.core import pipeline
-    harness.warm_up(drv, device, 0, True)
+    cards = len(driver.cards(devices))
+    harness.warm_up(drv, devices, 0, True)
     run = harness.Run()
-    zeroed = pipeline.stats()["wire_bytes_zeroed"]
-    stretch = tracing.Stretch(seconds)
-    errors = harness.window(device, seconds, drv.call, harness.Reservoir(0, seed), stretch, run)
-    zeroed = pipeline.stats()["wire_bytes_zeroed"] - zeroed
+    before = pipeline.stats()
+    stretch = tracing.Stretch(seconds, cards)
+    errors = harness.window(devices, seconds, drv.call, harness.Reservoir(0, seed), stretch,
+                            run)
+    after = pipeline.stats()
+    zeroed = after["wire_bytes_zeroed"] - before["wire_bytes_zeroed"]
+    hopped = after["wire_bytes_hopped"] - before["wire_bytes_hopped"]
     stretch.close()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         stretch.prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    reduced, prog = tracing.reduce(events), spans.program(events)
+    reduced, prog = tracing.reduce(events, cards), spans.program(events)
     out = {"errors": errors, "calls": run.calls, "window_s": run.window_s,
            "dispatch_ms": sum(run.dispatch_ms) / max(len(run.dispatch_ms), 1),
-           "wire_zero_MB_per_call": zeroed / run.calls / 1e6}
+           "wire_zero_MB_per_call": zeroed / run.calls / 1e6,
+           "wire_hopped_bytes_per_call": hopped / run.calls}
     if reduced:
+        hop_us = sum(float(e["dur"]) for e in events
+                     if e.get("ph") == "X" and e.get("name") == "repro_torch.hop")
         out.update(traced_calls=reduced["calls"],
+                   hop_span_ms_per_call=1e-3 * hop_us / reduced["calls"],
                    device_idle_pct=100 * (1 - reduced["busy_s"] / reduced["window_s"]),
                    launches_per_call=reduced["kernels"] / reduced["calls"],
                    kernel_ms_per_call=1e3 * reduced["kernel_s"] / reduced["calls"],
@@ -110,11 +123,13 @@ def main() -> int:
     device = torch.device("cuda", 0)
     harness.import_program()
     if args.single:
-        drv = Single(args.seed, device)
+        devices, drv = device, Single(args.seed, device)
     else:
-        drv = harness.prepare(harness.Spec(args.workload), args.seed, device)
+        spec = harness.Spec(args.workload)
+        devices = [torch.device("cuda", c) for c in range(spec.chips)]
+        drv = harness.prepare(spec, args.seed, devices)
     out = {"card": harness.card_line(), "what": args.workload or "rr8-single-encode",
-           "seed": args.seed, **traced_loop(drv, device, args.seconds, args.seed)}
+           "seed": args.seed, **traced_loop(drv, devices, args.seconds, args.seed)}
     print(json.dumps(out))
     return 0
 
