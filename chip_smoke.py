@@ -29,10 +29,11 @@ last line:
    must equal the data.
 4. Replay the main path's ticks through each kernel and through its plain
    version, check they agree and give the codeword and the object, and
-   time both; the decode also as the main path runs it, one
-   ``repair_chain`` launch, held against the plain ticks' object and
-   timed (its ``launches`` the main path's counted ones, the tick rows'
-   those counted in a replay); print the host build of the encode's and the decode's
+   time both; the encode and the decode also as the main path runs them,
+   one ``encode_chain`` and one ``repair_chain`` launch, held against the
+   plain ticks' codeword and object and timed (their ``launches`` the main
+   path's counted ones, the tick rows' those counted in a replay); print
+   the host build of the encode's and the decode's
    product tables, first and cached, and the encode's peak device bytes.
    (``tools/ab_chain_tick.py`` and ``tools/ab_repair_tick.py`` time earlier
    builds of the tick kernels against the package's.)
@@ -61,15 +62,16 @@ last line:
    ``pipelined_repair_many`` of the 5 lost blocks and
    ``pipelined_decode_many`` from the 11 survivors at stagger 1, each once
    with the counters set to 0 just before and read just after (launches:
-   38 ``chain_tick`` ticks, one ``repair_chain``, one ``repair_chain``) and its peak device bytes above the
+   one ``encode_chain``, one ``repair_chain``, one ``repair_chain``) and its peak device bytes above the
    resident inputs. Checks: every codeword against the plain packed matvec
    on the card and windows of three objects against host numpy; the
    repaired rows and the decoded objects. Wall times, first call and median
    of 5, at staggers 1, 4 and 8 and for the loop of 16 single-object calls
    beside each path; then each path's ticks replayed through the kernel and
    its plain version (the ``chain_tick[many]`` and ``repair_tick[many]``
-   rows), and the decode's and repair's ``repair_chain`` launch held
-   against the plain version's output and timed (``repair_chain[many]``). The codewords are freed once the survivors and lost rows are
+   rows), and the encode's ``encode_chain`` and the decode's and repair's
+   ``repair_chain`` launch held against the plain version's output and
+   timed (``encode_chain[many]``, ``repair_chain[many]``). The codewords are freed once the survivors and lost rows are
    taken, and the repair runs before the decode, whose wires are 15 GiB:
    the phase peaks near 65 GiB, at the decode's plain replay.
 9. The staggered ticks against their plain versions tick by tick (every
@@ -89,7 +91,7 @@ last line:
    survivors and ``pipelined_repair`` of the 5 lost rows stream it with a
    ``sink`` that hashes each output row incrementally (sha256), each twice:
    the first call with the counters at 0 just before and read just after
-   (stripes x ticks, plus the one warm-up run a program makes before it
+   (a launch a stripe, plus the one warm-up run a program makes before it
    captures its graphs), the second building no program. Each digest is
    held against that of the monolithic call on the card, and the stripe's
    device footprint (``streaming.measure_footprint`` of a program's first
@@ -115,8 +117,8 @@ last line:
    blob), made on the card from the seed, through a
    ``CheckpointManager`` on 16-node (16,11) GF(2^16) stores in a temporary
    directory: ``save_sharded`` (blocks against ``tree_to_bytes``, the
-   codeword against the plain matvec on the card, ``num_ticks`` chain_tick
-   launches), a second save of new values building no program, nodes
+   codeword against the plain matvec on the card, one ``encode_chain``
+   launch), a second save of new values building no program, nodes
    ``[5, 6, 7, 8, 14]`` lost and ``restore_sharded`` bit for bit (repair
    ticks counted), the static route (``use_devices=False``: coded blobs
    equal step 1's byte for byte, one ``gf_encode`` launch each way), the
@@ -149,7 +151,7 @@ last line:
    ``ServingEngine`` over the default ``WorkloadConfig`` (8 reads a tick,
    Zipf 1.1 over 16 ranks, 4-256 KiB, 2M users) for 24 ticks, with the
    counters at 0 just before the first tick and read after the last
-   (``chain_tick`` for the migrations, ``repair_chain`` for the coded
+   (``encode_chain`` for the migrations, ``repair_chain`` for the coded
    scrub). Checks: no lost object, no wrong byte, shards healed,
    ``verify_all`` restores every object digest-verified. Printed: each
    tick's wall and the kernels' share of it, the peak bytes on disk, the
@@ -189,7 +191,8 @@ last line:
    (``restore_latest``, decoded on the card): its losses within 1e-3
    (relative) of the unbroken run's (CUDA's embedding backward adds with
    atomics, so the continued run is not bitwise). The counters over (b)'s
-   saves and restores must show both tick kernels.
+   saves and restores must show both chain kernels, ``encode_chain`` and
+   ``repair_chain``.
 19. Placement on the devices of a mesh, here meshes of ``[cuda:0] * n``:
    ``repair_tick``'s ``last_forwards`` against its plain version, lockstep
    and staggered, at small shapes; then (a) phase 3's object encoded by a
@@ -453,6 +456,9 @@ REPLACES = {
     # a whole unplaced chain of repair_step_kernel ticks in one launch
     "repair_chain": "src/repro/kernels/gf_encode/kernel.py:164",
     "repair_chain[many]": "src/repro/kernels/gf_encode/kernel.py:164",
+    # a whole unplaced chain of chain_step_kernel ticks in one launch
+    "encode_chain": "src/repro/kernels/gf_encode/kernel.py:115",
+    "encode_chain[many]": "src/repro/kernels/gf_encode/kernel.py:115",
 }
 # Why each row's library_ms is null: there is no PyTorch call to time.
 _NO_GF = "no PyTorch call computes a GF(2^l) multiply-accumulate (no carry-less or finite-field product)"
@@ -460,6 +466,7 @@ LIBRARY_WHY = {
     "chain_tick": _NO_GF, "repair_tick": _NO_GF, "gf_encode": _NO_GF,
     "chain_tick[many]": _NO_GF, "repair_tick[many]": _NO_GF,
     "repair_chain": _NO_GF, "repair_chain[many]": _NO_GF,
+    "encode_chain": _NO_GF, "encode_chain[many]": _NO_GF,
     "gf_encode_mxu": "no PyTorch call computes the bit-lift with its unpack and mod-2 "
                      "repack; an int8 matmul is only its middle step",
 }
@@ -467,7 +474,8 @@ CSRC = "src/repro_torch/kernels/gf_encode/csrc/"
 SOURCE = {"chain_tick": CSRC + "gf_tick.cu", "repair_tick": CSRC + "gf_tick.cu",
           "gf_encode": CSRC + "gf_encode.cu", "gf_encode_mxu": CSRC + "gf_mxu.cu",
           "chain_tick[many]": CSRC + "gf_tick.cu", "repair_tick[many]": CSRC + "gf_tick.cu",
-          "repair_chain": CSRC + "gf_tick.cu", "repair_chain[many]": CSRC + "gf_tick.cu"}
+          "repair_chain": CSRC + "gf_tick.cu", "repair_chain[many]": CSRC + "gf_tick.cu",
+          "encode_chain": CSRC + "gf_tick.cu", "encode_chain[many]": CSRC + "gf_tick.cu"}
 
 
 def whisper_state(fill, count: int = 1, step: int = 1) -> dict:
@@ -804,6 +812,16 @@ def repair_chain_work(h: int, rows: int, Bp: int) -> tuple[int, int]:
     return (h + rows) * Bp * 4, 0
 
 
+def encode_chain_work(code, Bp: int) -> tuple[int, int]:
+    """(bytes, int32 ops) of one object's ``encode_chain`` launch: per lane
+    the k blocks in, each once (a block two nodes hold is kept in shared
+    memory between them), and the n codeword rows out (the running
+    combination stays in registers between nodes). Its nibble-table lookups
+    are shared-memory reads with no peak in this table, so no operations are
+    counted and the bound is the bytes'."""
+    return (code.k + code.n) * Bp * 4, 0
+
+
 def launched(fn, counter) -> int:
     """Runs ``fn`` once; the launches it made by ``counter``'s count."""
     before = counter.launches
@@ -1122,8 +1140,8 @@ def phase_replay(code, cw_p, lost, ids, launches: dict, work: dict, errs: dict,
 def many_paths(code, lost, ids, objects_p, shards_p, dev) -> dict:
     """The three staggered paths' tick operands, each read in place from the
     (B_obj, rows, Bp) batches: name -> chain length, wire slot shape, output
-    rows, the kernel and its plain version, for decode and repair
-    ``chain(out)``, the path's ``repair_chain`` launch, and
+    rows, the kernel and its plain version, ``chain(out)``, the path's
+    ``encode_chain`` or ``repair_chain`` launch, and
     ``tick(fn, out, stagger)``,
     the step of ``pipeline.staggered_pipeline`` through ``fn``."""
     Bp = (objects_p if objects_p is not None else shards_p).shape[-1]
@@ -1131,12 +1149,14 @@ def many_paths(code, lost, ids, objects_p, shards_p, dev) -> dict:
     paths = {}
     if objects_p is not None:
         src, slots, tables = chain.encode_operands(code, objects_p)
+        plan = kernel.EncodePlan(slots, code.k, dev)
 
         def enc(fn, out, stagger):
             return lambda wi, wo, t, lo, count: fn(wi, wo, src, slots, out.transpose(0, 1),
                                                    tables, L, t, NUM_CHUNKS, lo, count, stagger)
-        paths["encode"] = dict(n=N, slot=(S,), rows=N, Bp=Bp, tick=enc,
-                               fns=(kernel.chain_tick, ref.chain_tick_ref))
+        paths["encode"] = dict(
+            n=N, slot=(S,), rows=N, Bp=Bp, tick=enc, fns=(kernel.chain_tick, ref.chain_tick_ref),
+            chain=lambda out: kernel.encode_chain(src, plan, out.transpose(0, 1), tables, L))
     if shards_p is not None:
         packed = shards_p.transpose(0, 1)             # (len(ids), B_obj, Bp), a view
         dec_tables = chain.decode_operands(code, ids, dev)
@@ -1233,10 +1253,10 @@ def phase_many(code, lost, ids, dev, seed: int, work: dict, errs: dict) -> None:
           f"lost nodes {lost}; {n_obj * K * B * 2 / 2**30:.2f} GiB of objects resident")
 
     # -- encode ---------------------------------------------------------------
-    enc_ticks = pipeline.num_ticks_many(NUM_CHUNKS, N, n_obj, 1)
+    enc_counts = {}
     cw = first_call("pipelined_encode_many (stagger 1)",
                     lambda: multi.pipelined_encode_many(code, objects, NUM_CHUNKS, 1),
-                    only(chain_tick=enc_ticks))
+                    only(encode_chain=1), enc_counts)
     cw_p = gf.pack_u32(cw, L)
     check(tuple(cw.shape) == (n_obj, N, B), f"codewords {tuple(cw.shape)}")
     for o in range(n_obj):
@@ -1252,11 +1272,12 @@ def phase_many(code, lost, ids, dev, seed: int, work: dict, errs: dict) -> None:
           f"objects 0, {n_obj // 2}, {n_obj - 1} == host gf_matmul_np")
     many_timings("pipelined_encode_many",
                  lambda st: multi.pipelined_encode_many(code, objects, NUM_CHUNKS, st),
-                 cw_p, N, n_obj,
+                 cw_p, n_obj,
                  lambda: [chain.pipelined_encode(code, objects[o], NUM_CHUNKS)
                           for o in range(n_obj)])
     path = many_paths(code, lost, ids, objects_p, None, dev)["encode"]
     run, out = staggered_run(path, kernel.chain_tick, n_obj, 1, dev)
+    enc_ticks = launched(run, kernel.chain_tick)
     ms = median_ms(run, 3)
     check(torch.equal(out, cw_p.view(n_obj, N, Bp)), "replayed staggered encode")
     del run, out
@@ -1265,10 +1286,24 @@ def phase_many(code, lost, ids, dev, seed: int, work: dict, errs: dict) -> None:
     plain_ms = median_ms(run, 1)
     check(torch.equal(out, cw_p.view(n_obj, N, Bp)), "plain replay of the staggered encode")
     errs["chain_tick[many]"] = max(errs["chain_tick[many]"], max_abs_err(out, cw_p))
-    del run, out, path
+    del run
+    # the batch as the entry point runs it: one encode_chain launch, held
+    # against the plain ticks' output
+    got = torch.empty_like(out)
+    chain_ms = median_ms(lambda: path["chain"](got), 3)
+    check(torch.equal(got, out), "encode_chain == plain version over the staggered encode")
+    errs["encode_chain[many]"] = max(errs["encode_chain[many]"], max_abs_err(got, out))
+    del got, out, path
     nbytes, nops = chain_tick_work(code, Bp)
     add_work(work, "chain_tick[many]", enc_ticks, ms, plain_ms, n_obj * nbytes, n_obj * nops)
-    report_work("chain_tick[many]", work["chain_tick[many]"], f"{n_obj} objects, stagger 1")
+    report_work("chain_tick[many]", work["chain_tick[many]"],
+                f"{n_obj} objects, stagger 1, as a placed chain runs them")
+    nbytes, _ = encode_chain_work(code, Bp)
+    add_work(work, "encode_chain[many]", enc_counts["encode_chain"], chain_ms, plain_ms,
+             n_obj * nbytes, 0)
+    print(f"encode_chain[many]: {chain_ms:.3f} ms against {ms:.3f} ms of ticks; bound "
+          f"{n_obj * nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
+    report_work("encode_chain[many]", work["encode_chain[many]"], f"{n_obj} objects")
 
     # survivors and lost rows of every object; the codewords go
     shards_p = cw_p[:, ids_t]                     # (B_obj, 11, Bp): a copy
@@ -1288,7 +1323,7 @@ def phase_many(code, lost, ids, dev, seed: int, work: dict, errs: dict) -> None:
     del rep
     many_timings("pipelined_repair_many",
                  lambda st: repair.pipelined_repair_many(code, ids, shards, lost, NUM_CHUNKS, st),
-                 lost_p, h, n_obj,
+                 lost_p, n_obj,
                  lambda: [repair.pipelined_repair(code, ids, shards[o], lost, NUM_CHUNKS)
                           for o in range(n_obj)])
     rep_ms, rep_plain_ms, rep_chain_ms, rep_ticks = replay_many(paths["repair"], n_obj,
@@ -1304,7 +1339,7 @@ def phase_many(code, lost, ids, dev, seed: int, work: dict, errs: dict) -> None:
     del dec
     many_timings("pipelined_decode_many",
                  lambda st: multi.pipelined_decode_many(code, ids, shards, NUM_CHUNKS, st),
-                 objects_p, len(ids), n_obj,
+                 objects_p, n_obj,
                  lambda: [chain.pipelined_decode(code, ids, shards[o], NUM_CHUNKS)
                           for o in range(n_obj)])
     dec_ms, dec_plain_ms, dec_chain_ms, dec_ticks = replay_many(paths["decode"], n_obj,
@@ -1333,23 +1368,24 @@ def phase_many(code, lost, ids, dev, seed: int, work: dict, errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def many_timings(name: str, call, want: torch.Tensor, n: int, n_obj: int, loop) -> None:
+def many_timings(name: str, call, want: torch.Tensor, n_obj: int, loop) -> None:
     """First call and median of 5 of a staggered entry point at each of
     ``MANY_STAGGERS`` past the first (``first_call`` timed stagger 1; each
     result held against ``want``), and of the loop of single-object calls
-    beside them."""
+    beside them. On the card an unplaced batch is one launch, and the loop
+    one a call."""
     for stagger in MANY_STAGGERS[1:]:
         first, med = first_and_median(
             lambda: call(stagger),
             lambda got: check(torch.equal(gf.pack_u32(got, L), want),
                               f"{name} at stagger {stagger}"))
         print(f"{name} stagger={stagger}: {first:.3f} ms first call, {med:.3f} ms median of 5 "
-              f"({pipeline.num_ticks_many(NUM_CHUNKS, n, n_obj, stagger)} launches)")
+              f"(one launch)")
     first, med = first_and_median(
         loop, lambda got: check(all(torch.equal(gf.pack_u32(g, L), want[o])
                                     for o, g in enumerate(got)), f"{name}: the loop's results"))
     print(f"loop of {n_obj} single-object calls beside {name}: {first:.3f} ms first call, "
-          f"{med:.3f} ms median of 5 ({n_obj * pipeline.num_ticks(NUM_CHUNKS, n)} launches)")
+          f"{med:.3f} ms median of 5 ({n_obj} launches)")
 
 
 def replay_many(path: dict, n_obj: int, want: torch.Tensor, errs: dict,
@@ -1515,8 +1551,8 @@ class KernelTimer:
     @contextlib.contextmanager
     def active(self):
         saved = {name: getattr(ops, name)
-                 for name in ("chain_tick", "repair_tick", "repair_chain", "encode_packed",
-                              "encode_mxu")}
+                 for name in ("chain_tick", "repair_tick", "repair_chain", "encode_chain",
+                              "encode_packed", "encode_mxu")}
         replay, stage = kernel.Graph.replay, streaming._Stripes._stage
         try:
             for name, fn in saved.items():
@@ -1626,7 +1662,7 @@ def phase_streaming(code, lost, ids, data_np, cw704_digests, dev, seed: int, poo
     runs = (
         ("pipelined_encode", lambda sink: chain.pipelined_encode(
             code, obj_words, nc, superchunk_words=sc, sink=sink), K, N, enc_digests,
-         "chain_tick", pipeline.num_ticks(nc, N)),
+         "encode_chain", 1),
         ("pipelined_decode", lambda sink: chain.pipelined_decode(
             code, ids, shard_words, nc, superchunk_words=sc, sink=sink), h, K, obj_digests,
          "repair_chain", 1),
@@ -1770,7 +1806,7 @@ def phase_archive(code, data_np, lost, cw704_digests, dev, seed: int) -> None:
         store = object_store.NodeStore(os.path.join(root, "a"), N)
         timed("hot_save", lambda: archive.hot_save(store, 1, blocks, acfg))
         m = timed("archive_step", lambda: archive.archive_step(store, 1, acfg),
-                  chain_tick=pipeline.num_ticks(NUM_CHUNKS, N))
+                  encode_chain=1)
         check(m["coded_digests"] == [d[:16] for d in cw704_digests],
               "coded digests == phase 3's codeword rows")
         for i in lost:
@@ -1796,8 +1832,7 @@ def phase_archive(code, data_np, lost, cw704_digests, dev, seed: int) -> None:
                    lambda: archive.archive_step(store2, 1, acfg,
                                                 superchunk_bytes=ARCHIVE_STRIPE_BYTES))
         built = jitcache.stats()["misses"] - misses
-        check(kernel.launch_counts() == only(chain_tick=(stripes + built) *
-                                             pipeline.num_ticks(NUM_CHUNKS, N)),
+        check(kernel.launch_counts() == only(encode_chain=stripes + built),
               f"streamed archive launches {kernel.launch_counts()}")
         check(m2["coded_digests"] == m["coded_digests"]
               and m2["streaming"]["num_superchunks"] == stripes,
@@ -1819,10 +1854,10 @@ def phase_archive(code, data_np, lost, cw704_digests, dev, seed: int) -> None:
         mb = timed(f"archive_many of {ARCHIVE_OBJECTS} objects of {K} x "
                    f"{ARCHIVE_BLOCK_BYTES >> 20} MiB, stagger 1",
                    lambda: archive.archive_many(batch, steps, acfg, stagger=1),
-                   chain_tick=pipeline.num_ticks_many(NUM_CHUNKS, N, ARCHIVE_OBJECTS, 1))
+                   encode_chain=1)
         ms_ = timed(f"archive_step x {ARCHIVE_OBJECTS}",
                     lambda: [archive.archive_step(single, s, acfg) for s in steps],
-                    chain_tick=ARCHIVE_OBJECTS * pipeline.num_ticks(NUM_CHUNKS, N))
+                    encode_chain=ARCHIVE_OBJECTS)
         check([x["coded_digests"] for x in mb] == [x["coded_digests"] for x in ms_],
               "archive_many coded digests == one archive_step each")
         same_blobs(batch, single, dict(zip(steps, mb)), dict(zip(steps, ms_)), steps)
@@ -1889,7 +1924,6 @@ def phase_checkpoint(code, dev, seed: int, pool) -> dict:
     state2 = whisper_state(randn, count=2, step=2)
     B = object_store.block_bytes_for(layout.blob_len, K, lane_bytes=devio.LANE_BYTES)
     nc = devio._chunk_count(B // 2, L, NUM_CHUNKS)
-    enc_ticks = pipeline.num_ticks(nc, N)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt-")
     print(f"checkpoint: whisper-base train state, {len(layout.metas)} leaves, blob "
           f"{layout.blob_len} bytes ({layout.blob_len / 2**30:.3f} GiB), {K} blocks of {B} "
@@ -1912,7 +1946,7 @@ def phase_checkpoint(code, dev, seed: int, pool) -> dict:
         # 1-2: device-direct saves, the codeword against the plain matvec
         mgr = manager_at("device")
         m1 = timed("save_sharded step 1 (first: builds the program)",
-                   lambda: mgr.save_sharded(1, state1), chain_tick=enc_ticks)
+                   lambda: mgr.save_sharded(1, state1), encode_chain=1)
         blob = object_store.tree_to_bytes(state1)
         check(len(blob) == layout.blob_len and blob[:len(layout.prefix)] == layout.prefix,
               "host blob of the state == the layout")
@@ -1931,7 +1965,7 @@ def phase_checkpoint(code, dev, seed: int, pool) -> dict:
         torch.cuda.empty_cache()
         before = jitcache.compile_counts()
         timed("save_sharded step 2 (warm: new values)", lambda: mgr.save_sharded(2, state2),
-              chain_tick=enc_ticks)
+              encode_chain=1)
         check(jitcache.compile_counts() == before, "a repeated save builds no new program")
 
         # 3: five nodes lost, device-direct restore
@@ -1970,9 +2004,9 @@ def phase_checkpoint(code, dev, seed: int, pool) -> dict:
         mgr = manager_at("host")
         timed("save step 10 (host: hot replicas)", lambda: mgr.save(10, state1))
         timed("save step 11, archiving step 10", lambda: mgr.save(11, state2),
-              chain_tick=enc_ticks)
+              encode_chain=1)
         timed("save step 12, archiving step 11", lambda: mgr.save(12, state1),
-              chain_tick=enc_ticks)
+              encode_chain=1)
         check([mgr.tier(s) for s in mgr.steps()] == ["archive", "archive", "hot"],
               f"tiers {[mgr.tier(s) for s in mgr.steps()]}")
         for i in CKPT_LOST:
@@ -2006,8 +2040,7 @@ def phase_checkpoint(code, dev, seed: int, pool) -> dict:
         # the stripes' graphs (on the card)
         built = (jitcache.stats()["misses"] - misses) if dev.type == "cuda" else 0
         stripes_ = m["streaming"]["stripes"]
-        check(kernel.launch_counts() == only(chain_tick=(plan.num_superchunks + built)
-                                             * pipeline.num_ticks(NUM_CHUNKS, N)),
+        check(kernel.launch_counts() == only(encode_chain=plan.num_superchunks + built),
               f"streamed save launches {kernel.launch_counts()}")
         check(m["streaming"]["num_superchunks"] == plan.num_superchunks
               and m["streaming"]["superchunk_bytes"] == plan.sc_words * 2
@@ -2078,15 +2111,14 @@ def phase_control_plane(code, dev, seed: int) -> dict:
     data = autotune.random_words((K, nw), L, dev)
     nc, nc_many, stg = rep["num_chunks_encode"], rep["num_chunks_encode_many"], rep["stagger"]
     cw = timed("pipelined_encode, num_chunks=None (tuned)",
-               lambda: chain.pipelined_encode(code, data), chain_tick=pipeline.num_ticks(nc, N))
+               lambda: chain.pipelined_encode(code, data), encode_chain=1)
     check(words_equal(cw, chain.pipelined_encode(code, data, num_chunks=nc))
           and words_equal(cw, chain.pipelined_encode(code, data, num_chunks=NUM_CHUNKS)),
           "the tuned encode == the explicit calls")
     del cw
     objs = autotune.random_words((b_obj, K, nw), L, dev)
     many = timed("pipelined_encode_many, num_chunks=None, stagger=None (tuned)",
-                 lambda: multi.pipelined_encode_many(code, objs),
-                 chain_tick=pipeline.num_ticks_many(nc_many, N, b_obj, stg))
+                 lambda: multi.pipelined_encode_many(code, objs), encode_chain=1)
     check(words_equal(many, multi.pipelined_encode_many(code, objs, num_chunks=nc_many,
                                                         stagger=stg))
           and words_equal(many, multi.pipelined_encode_many(code, objs, num_chunks=NUM_CHUNKS,
@@ -2152,7 +2184,7 @@ def phase_control_plane(code, dev, seed: int) -> dict:
         m = timed(f"archive_step with topology (nodes {list(SLOW_NODES)} slowed 4x), "
                   f"{K} x {ARCHIVE_BLOCK_BYTES >> 20} MiB",
                   lambda: archive.archive_step(store, 1, acfg, topology=topo),
-                  chain_tick=pipeline.num_ticks(plan_nc, N))
+                  encode_chain=1)
         check(m["sched"] == {**plan.to_manifest(), "topology": topo.to_dict(),
                              "num_chunks": plan_nc} and m["perm"] == list(plan.order),
               "the manifest records the scheduler's plan")
@@ -2262,8 +2294,8 @@ def phase_live(dev, seed: int) -> dict:
         counts = kernel.launch_counts()
         rep = eng.report()
         life = rep["lifecycle"]
-        check(counts["chain_tick"] > 0 and counts["repair_chain"] > 0,
-              f"the soak launched chain_tick and repair_chain: {counts}")
+        check(counts["encode_chain"] > 0 and counts["repair_chain"] > 0,
+              f"the soak launched encode_chain and repair_chain: {counts}")
         check(life["lost_objects"] == 0, f"lost objects {life['lost_objects']}")
         check(rep["wrong_bytes"] == 0, f"wrong bytes {rep['wrong_bytes']}")
         check(life["total_repaired_shards"] > 0,
@@ -2302,7 +2334,7 @@ def phase_live(dev, seed: int) -> dict:
         finally:
             shutil.rmtree(root, ignore_errors=True)
     card, plain = runs["cuda"], runs["cpu"]
-    check(card[4]["chain_tick"] > 0 and plain[4] == dict.fromkeys(plain[4], 0),
+    check(card[4]["encode_chain"] > 0 and plain[4] == dict.fromkeys(plain[4], 0),
           f"the 4 KiB run's launches: card {card[4]}, plain {plain[4]}")
     check(card[0] == plain[0], "4 KiB: per-tick rows on the card == plain versions")
     check(card[1] == plain[1] and card[2] == plain[2],
@@ -2310,7 +2342,7 @@ def phase_live(dev, seed: int) -> dict:
     check(sorted(card[3]) == sorted(plain[3]) and card[3] == plain[3] and card[5] == plain[5],
           "4 KiB: store trees on the card == plain versions, file by file")
     print(f"checks: zero lost objects, zero wrong bytes, verify_all restores every object, "
-          f"{life['total_repaired_shards']} shards healed, chain_tick and repair_chain launched; "
+          f"{life['total_repaired_shards']} shards healed, encode_chain and repair_chain launched; "
           f"at {LIVE_PARITY_BLOCK_BYTES} bytes a block the card's run == the plain versions' "
           f"(rows, reports, {len(card[3])} files)")
     return counts
@@ -2454,7 +2486,7 @@ def phase_placed(code, dev, seed: int, cw704_digests, pool, errs: dict,
             root=os.path.join(root, name), n=N, k=K, l=L, seed=seed, archive_old=False))
             for name in ("unplaced", "placed")}
         m_u = timed_call("save_sharded, no mesh", lambda: mgrs["unplaced"].save_sharded(1, state),
-                         {"chain_tick": pipeline.num_ticks(nc, N)}, tally)
+                         {"encode_chain": 1}, tally)
         m_p = timed_call("save_sharded(mesh=4x4), 16 positions",
                          lambda: mgrs["placed"].save_sharded(1, state, mesh=mesh16),
                          {"chain_tick": N * nc}, tally)
@@ -2832,7 +2864,7 @@ def phase_train(dev, seed: int) -> tuple[dict, list[float]]:
         check(crash.steps() == [CKPT_SAVE_EVERY, CKPT_TRAIN_STEPS]
               and all(crash.tier(s) == "archive" for s in crash.steps()),
               f"coded steps {crash.steps()}")
-        check(counts["chain_tick"] > 0 and counts["repair_chain"] > 0,
+        check(counts["encode_chain"] > 0 and counts["repair_chain"] > 0,
               f"saves and restores launched the chain kernels: {counts}")
         del resumed
         print(f"training through the checkpoint: {WHISPER_ARCH} at full width and depth, "
@@ -3371,10 +3403,9 @@ def run_phases(dev, seed: int, pool) -> int:
     counts = kernel.launch_counts()
     dec_peak = torch.cuda.max_memory_allocated()
 
-    enc_ticks = pipeline.num_ticks(NUM_CHUNKS, N)
-    check(enc_counts == only(chain_tick=enc_ticks),
-          f"encode launches {enc_counts}, want {enc_ticks} chain_tick")
-    check(counts == only(chain_tick=enc_ticks, repair_chain=1),
+    check(enc_counts == only(encode_chain=1),
+          f"encode launches {enc_counts}, want one encode_chain")
+    check(counts == only(encode_chain=1, repair_chain=1),
           f"decode launches {counts}, want one repair_chain")
     check(tuple(cw.shape) == (N, B), f"codeword shape {tuple(cw.shape)}")
     check(torch.equal(gf.pack_u32(rec, L), data_p), "decoded object == data")
@@ -3394,8 +3425,8 @@ def run_phases(dev, seed: int, pool) -> int:
     print(f"main path: ({N},{K}) GF(2^{L}) seed={seed}, object {obj_bytes} bytes "
           f"({mib:.0f} MiB), {NUM_CHUNKS} chunks, lost nodes {lost}")
     print(f"encode: {enc_ms:.3f} ms wall first call, {enc_warm:.3f} ms median of "
-          f"5 repeats ({mib / enc_warm * 1e3:.1f} MiB/s of object), chain_tick "
-          f"launches {enc_counts['chain_tick']}, peak {enc_peak / 2**30:.2f} GiB "
+          f"5 repeats ({mib / enc_warm * 1e3:.1f} MiB/s of object), encode_chain "
+          f"launches {enc_counts['encode_chain']}, peak {enc_peak / 2**30:.2f} GiB "
           f"({(enc_peak - resident) / 2**30:.3f} GiB above the resident object)")
     print(f"decode: {dec_ms:.3f} ms wall first call, {dec_warm:.3f} ms median of "
           f"5 repeats ({mib / dec_warm * 1e3:.1f} MiB/s of object), repair_chain "
@@ -3424,14 +3455,28 @@ def run_phases(dev, seed: int, pool) -> int:
     clocks = smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
     for tick, reps in ((kernel.chain_tick, 5), (ref.chain_tick_ref, 3)):
         enc_outs[tick] = torch.empty((N, 1, Bp), dtype=torch.int32, device=dev)
-        timings[tick] = median_ms(replay(N, tick, (N, 1, S), dev, enc_tick), reps)
+        run = replay(N, tick, (N, 1, S), dev, enc_tick)
+        if tick is kernel.chain_tick:
+            enc_ticks = launched(run, kernel.chain_tick)
+        timings[tick] = median_ms(run, reps)
     check(torch.equal(enc_outs[kernel.chain_tick], enc_outs[ref.chain_tick_ref]),
           "chain_tick == plain version over the main path's ticks")
     check(torch.equal(enc_outs[kernel.chain_tick][:, 0], cw_p), "replayed codeword")
     errs["chain_tick"] = max(errs["chain_tick"], max_abs_err(
         enc_outs[kernel.chain_tick], enc_outs[ref.chain_tick_ref]))
-    print(f"chain_tick main path (23 ticks): {timings[kernel.chain_tick]:.3f} ms; sm MHz, "
-          f"mem MHz, W, C before the replay: {clocks}")
+    print(f"chain_tick main path's chain as ticks ({enc_ticks} ticks): "
+          f"{timings[kernel.chain_tick]:.3f} ms; sm MHz, mem MHz, W, C before the replay: "
+          f"{clocks}")
+    # the encode as the main path runs it: one encode_chain launch
+    chain_out = torch.empty((N, 1, Bp), dtype=torch.int32, device=dev)
+    plan = kernel.EncodePlan(slots, K, dev)
+    timings[kernel.encode_chain] = median_ms(
+        lambda: kernel.encode_chain(src, plan, chain_out, tables, L), 5)
+    check(torch.equal(chain_out, enc_outs[ref.chain_tick_ref]),
+          "encode_chain == plain version over the main path's encode")
+    errs["encode_chain"] = max(errs["encode_chain"], max_abs_err(
+        chain_out, enc_outs[ref.chain_tick_ref]))
+    del chain_out
     enc_outs.clear()
 
     chain.decode_tables.cache_clear()
@@ -3477,8 +3522,10 @@ def run_phases(dev, seed: int, pool) -> int:
     # Work over all of a run's ticks (chain_tick_work, repair_tick_work).
     work = {name: {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0,
                    "ops": 0, "int8_ops": 0} for name in REPLACES}
-    add_work(work, "chain_tick", counts["chain_tick"], timings[kernel.chain_tick],
+    add_work(work, "chain_tick", enc_ticks, timings[kernel.chain_tick],
              timings[ref.chain_tick_ref], *chain_tick_work(code, Bp))
+    add_work(work, "encode_chain", counts["encode_chain"], timings[kernel.encode_chain],
+             timings[ref.chain_tick_ref], *encode_chain_work(code, Bp))
     add_work(work, "repair_tick", dec_ticks, timings[kernel.repair_tick],
              timings[ref.repair_tick_ref], *repair_tick_work(n_alive, K, Bp, head_zero=True))
     add_work(work, "repair_chain", counts["repair_chain"], timings[kernel.repair_chain],
@@ -3490,7 +3537,9 @@ def run_phases(dev, seed: int, pool) -> int:
     print(f"decode operands: product tables {tuple(dec_tables.shape)} built on the host in "
           f"{dec_table_first_ms:.3f} ms at a survivor set's first decode, "
           f"{dec_table_cached_ms:.4f} ms cached; the shards are read in place")
-    report_work("chain_tick", work["chain_tick"], "main path")
+    report_work("chain_tick", work["chain_tick"],
+                "main path's ticks as a placed chain runs them")
+    report_work("encode_chain", work["encode_chain"], "main path")
     report_work("repair_tick", work["repair_tick"],
                 "main path's ticks as a placed chain runs them, head row's read skipped")
     report_work("repair_chain", work["repair_chain"], "main path")
@@ -3534,9 +3583,11 @@ def run_phases(dev, seed: int, pool) -> int:
     # -- phase 14: the control plane -------------------------------------------
     for name, c in phase_control_plane(code, dev, seed).items():
         slice_launches[name] += c
-    # unplaced decodes and repairs run repair_chain; repair_tick runs placed chains only
-    check(all(c > 0 for name, c in slice_launches.items() if name != "repair_tick"),
-          f"every kernel but repair_tick launched on phases 13-14's paths: {slice_launches}")
+    # unplaced encodes run encode_chain, unplaced decodes and repairs
+    # repair_chain; the ticks run placed chains only
+    check(all(c > 0 for name, c in slice_launches.items()
+              if name not in ("chain_tick", "repair_tick")),
+          f"every kernel but the ticks launched on phases 13-14's paths: {slice_launches}")
     print(f"launches on phases 13-14's paths: {slice_launches}")
     torch.cuda.empty_cache()
 

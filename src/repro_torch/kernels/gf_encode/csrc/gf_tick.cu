@@ -1,13 +1,13 @@
 // Pipeline-tick kernels of the RapidRAID chain, for Hopper (sm_90a).
 //
-// Both kernels work on packed GF(2^l) words: one 32-bit lane holds 4 words
+// Every kernel works on packed GF(2^l) words: one 32-bit lane holds 4 words
 // of GF(2^8) or 2 of GF(2^16).
 //
-// One launch is one tick of the pipeline over a (lane tile, window slot,
-// active node) grid. The wire between neighbours is a buffer with one row
-// per node and W window slots a row: node i reads row i of the incoming
-// buffer and writes row i + 1 of the outgoing one (the host keeps row 0
-// zero, the head of the chain). The block (slot w, node i) works out which
+// A launch of a tick kernel is one tick of the pipeline over a (lane tile,
+// window slot, active node) grid. The wire between neighbours is a buffer
+// with one row per node and W window slots a row: node i reads row i of the
+// incoming buffer and writes row i + 1 of the outgoing one (the host keeps
+// row 0 zero, the head of the chain). The block (slot w, node i) works out which
 // object b and which chunk ch it works from the tick t itself, so a tick
 // needs no host-to-device copy:
 // - lockstep (stagger 0): slot w is object w, every object at ch = t - i;
@@ -22,7 +22,9 @@
 // object-major is never transposed.
 //
 // chain_tick replaces chain_step_kernel / _chain_step_body
-// (src/repro/kernels/gf_encode/kernel.py), the encode tick (Eqs. 3-4):
+// (src/repro/kernels/gf_encode/kernel.py), the encode tick (Eqs. 3-4) of a
+// chain placed on devices or laid out over cards, whose wire crosses them
+// (an unplaced encode is one encode_chain launch, below):
 //     c     = x_in ^ sum_s xi[i, s]  * block(i, s)    (kept codeword chunk)
 //     x_out = x_in ^ sum_s psi[i, s] * block(i, s)    (forwarded wire)
 // Bound: memory. Per active node and lane it reads the wire and each
@@ -143,6 +145,47 @@
 // - A launch takes 256 positions (its row table travels by value); a longer
 //   chain is several launches, each after the first starting from the sums
 //   the one before left in `out`.
+//
+// encode_chain replaces the whole chain of chain_step_kernel ticks of an
+// unplaced encode (every chunk of every object, every node) with one
+// launch, as repair_chain does for decode and repair. Per lane tile the
+// running combination x starts at zero and walks the n nodes in chain
+// order, in registers:
+//     c_i = x ^ sum_s xi[i, s]  * block(i, s)    (stored once, row i of out)
+//     x   = x ^ sum_s psi[i, s] * block(i, s)
+// so no wire exists. Per lane it reads each block once and writes n
+// codeword lanes: on the (16,11) GF(2^16) archival of 16 objects of 704 MiB
+// 29 GB, 8.65 ms of HBM, against about 75 GB through the ticks' wires.
+// Bound: memory, with the lookups and their issue close behind: 16 objects
+// x 2^24 lanes x 22 slots x 8 nibble lookups, 47e9 (PERF.md). The design:
+// - A plan made on the host from the slot table (kernel.encode_plan): each
+//   node's terms, one a slot that holds a block, in chain order. Block j of
+//   RapidRAID is held by nodes j and j + n - k; its first term keeps the
+//   lanes it read in a lane cache in shared memory (each thread its own 16
+//   bytes, so no barrier) and its second reads them there, so a block
+//   crosses HBM once. Without the caches the second reads missed L2 (their
+//   reuse distance is about 27 MB of traffic) and the chain moved 41 GB:
+//   14.4 ms in nibbles, 13.6 ms in bytes. A node's cached reads come first,
+//   so the (16,11) code keeps 5 caches (40 KB a block).
+// - Nibble tables: 16-entry tables per 4-bit nibble, taken from the ticks'
+//   combined xi | psi byte tables, so one lookup gives the kept and the
+//   forwarded term and a warp's lookup is one wavefront. The nibbles come
+//   out as bytes of two masked words, each a byte offset, so a lookup is
+//   one byte permute and one load at a uniform base. The 256-entry byte
+//   tables take half the lookups at about 3 wavefronts each; a build of
+//   this kernel on them (tools/ab_encode_chain.py) was slower at the
+//   benchmark's shape: 12.5-12.8 ms against 11.1-11.8 ms for
+//   archival, 0.85-0.87 ms against 0.82-0.84 ms for one object (PERF.md).
+// - Persistent blocks of 512 threads walk (object, lane tile) items, two a
+//   multiprocessor (64 registers). A block stages every term's tables and
+//   plan in shared memory once where they fit 227 KB beside the caches (the
+//   (16,11) code's 22 terms take 6 KB), else `group` terms at a time for
+//   each item, x and the node's products kept in registers across the
+//   stages.
+// - The next two terms' global lanes are loaded before a term's lookups:
+//   three or four ahead, or a stream of loads running on into the next
+//   item, were slower; 16-byte lanes where every row is 16-byte aligned,
+//   else 4-byte lanes.
 
 #include <cuda_runtime.h>
 
@@ -706,6 +749,154 @@ __global__ void __launch_bounds__(kChainThreads, G == 1 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
+// encode_chain
+// ---------------------------------------------------------------------------
+
+// terms whose block lanes a thread has in flight ahead of its lookups
+constexpr int kEncodeAhead = 2;
+// A term of the plan: the slot whose tables it applies (its flat index
+// into the (n, max_b) tables; -1: none, a node that holds no block), the
+// block it reads (-1: none), the lane cache it reads the block from (-1:
+// global memory), the one it keeps the block's lanes in for a later term
+// (-1: none), and whether it is its node's last term.
+enum Plan { kTable, kBlock, kFrom, kTo, kLast, kPlanInts };
+constexpr int kMaxEncodeCaches = 8;   // lane caches a block may keep
+
+// Stages terms [t0, t1) of the plan into s: each term's nibble tables, laid
+// out (t - t0, kNibbleWords), from the byte tables (n, max_b, L/8, 256)
+// (nibble m of a word is the low or the high half of byte m / 2, so its
+// entry v is that byte's entry v or v << 4), then the terms' plans.
+template <int L>
+__device__ __forceinline__ void stage_encode_terms(uint32_t* s, const uint32_t* tables,
+                                                   const int* plan, int t0, int t1) {
+  constexpr int NW = kNibbleWords<L>;
+  const int per = (t1 - t0) * NW;
+  for (int e = threadIdx.x; e < per; e += kChainThreads) {
+    const int q = plan[(t0 + e / NW) * kPlanInts + kTable], r = e % NW;
+    const uint32_t* slot = tables + static_cast<size_t>(q < 0 ? 0 : q) * kSlotWords<L>;
+    s[e] = q < 0 ? 0 : slot[(r / 32) * 256 + ((r % 16) << (4 * (r / 16 % 2)))];
+  }
+  int* staged = reinterpret_cast<int*>(s + per);
+  for (int e = threadIdx.x; e < (t1 - t0) * kPlanInts; e += kChainThreads)
+    staged[e] = plan[t0 * kPlanInts + e];
+}
+
+// e[w] ^= the packed (xi, psi) products of word w of lane v, from one
+// term's nibble tables: nibble k of the lane indexes table k % (L / 4). The
+// nibbles come out four times over as bytes of two words, each byte a
+// table's byte offset, so a lookup costs one byte permute.
+template <int L>
+__device__ __forceinline__ void add_nibble_products(const uint32_t* T, uint32_t v,
+                                                    uint32_t (&e)[32 / L]) {
+  const uint32_t lo = (v << 2) & 0x3c3c3c3cu;  // byte m: 4 x nibble 2m
+  const uint32_t hi = (v >> 2) & 0x3c3c3c3cu;  // byte m: 4 x nibble 2m + 1
+  const char* base = reinterpret_cast<const char*>(T);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    constexpr int P = L / 4;  // nibble tables a word
+    const uint32_t a = __byte_perm(lo, 0, 0x4440 + m), b = __byte_perm(hi, 0, 0x4440 + m);
+    e[2 * m / P] ^= *reinterpret_cast<const uint32_t*>(base + (2 * m % P) * 64 + a);
+    e[(2 * m + 1) / P] ^= *reinterpret_cast<const uint32_t*>(base + ((2 * m + 1) % P) * 64 + b);
+  }
+}
+
+// src (n_obj, R, Bp) contiguous, object o's block b at src + (o * R + b) *
+// Bp; out: node i's row of object o at out + i * out_node + o * out_obj;
+// tables (n, max_b, L/8, 256); plan (terms, kPlanInts) on the device, the
+// nodes' terms in chain order. Each block walks (object, lane tile) items;
+// per item x starts at zero and takes the terms in order, each adding its
+// packed (xi, psi) products, and at a node's last term the node stores x ^
+// kept as its row and x takes the forwarded half. A term reads its block's
+// lanes from global memory or from one of `caches` lane caches in shared
+// memory (each thread its own lanes), where an earlier term kept them. With
+// `whole` every term is staged once; else `group` terms at a time, for
+// each item.
+template <int L, int VEC>
+__global__ void __launch_bounds__(kChainThreads, 2)
+    encode_chain_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ out,
+                        const uint32_t* __restrict__ tables, const int* __restrict__ plan,
+                        int terms, int n_obj, int R, int caches, int whole, int group,
+                        long long Bp, long long out_node, long long out_obj) {
+  extern __shared__ uint32_t s_mem[];
+  constexpr int NW = kNibbleWords<L>;
+  constexpr int A = kEncodeAhead;
+  constexpr int kCacheWords = kChainThreads * VEC;
+  uint32_t* lanes = s_mem + threadIdx.x * VEC;     // this thread's lanes of cache 0
+  uint32_t* s_tab = s_mem + caches * kCacheWords;  // the staged tables, then the plans
+  const long long steps = Bp / VEC;  // VEC divides Bp (checked by the launcher)
+  const long long tiles = (steps + kChainThreads - 1) / kChainThreads;
+  if (whole) {
+    stage_encode_terms<L>(s_tab, tables, plan, 0, terms);
+    __syncthreads();
+  }
+  // every thread of a block walks the same items, so a stage may sit inside
+  for (long long it = blockIdx.x; it < tiles * n_obj; it += gridDim.x) {
+    const int o = static_cast<int>(it / tiles);
+    const long long j = (it % tiles) * kChainThreads + threadIdx.x;
+    const bool active = j < steps;
+    const uint32_t* blocks = src + static_cast<size_t>(o) * R * Bp + j * VEC;
+    uint32_t* row = out + o * out_obj + j * VEC;  // the current node's row
+    uint32_t x[VEC] = {};
+    uint32_t e[VEC][32 / L] = {};
+    for (int t0 = 0; t0 < terms; t0 += group) {
+      const int t1 = min(terms, t0 + group);
+      if (!whole) {
+        __syncthreads();  // every thread is done with the previous stage
+        stage_encode_terms<L>(s_tab, tables, plan, t0, t1);
+        __syncthreads();
+      }
+      // term t's plan at pl + (t - t0) * kPlanInts, uniform across the block
+      const int* pl = reinterpret_cast<const int*>(s_tab + (t1 - t0) * NW);
+      // the next A terms' global lanes in flight before a term's lookups
+      uint32_t ahead[A][VEC] = {};
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const int* p = pl + a * kPlanInts;
+        if (active && t0 + a < t1 && p[kBlock] >= 0 && p[kFrom] < 0)
+          load_lanes<VEC>(blocks + p[kBlock] * Bp, ahead[a]);
+      }
+      for (int t = t0; t < t1; ++t) {
+        const int* p = pl + (t - t0) * kPlanInts;
+        uint32_t v[VEC];
+        if (p[kFrom] >= 0) {
+          load_lanes<VEC>(lanes + p[kFrom] * kCacheWords, v);
+        } else {
+#pragma unroll
+          for (int w = 0; w < VEC; ++w) v[w] = ahead[0][w];
+        }
+#pragma unroll
+        for (int a = 0; a + 1 < A; ++a)
+#pragma unroll
+          for (int w = 0; w < VEC; ++w) ahead[a][w] = ahead[a + 1][w];
+        const int* pa = p + A * kPlanInts;
+        if (active && t + A < t1 && pa[kBlock] >= 0 && pa[kFrom] < 0)
+          load_lanes<VEC>(blocks + pa[kBlock] * Bp, ahead[A - 1]);
+        if (p[kBlock] >= 0) {
+          if (p[kTo] >= 0) store_lanes<VEC>(lanes + p[kTo] * kCacheWords, v);
+          const uint32_t* T = s_tab + (t - t0) * NW;
+#pragma unroll
+          for (int r = 0; r < VEC; ++r) add_nibble_products<L>(T, v[r], e[r]);
+        }
+        if (!p[kLast]) continue;
+        // the node's last term: its row, then x moves on
+        uint32_t c[VEC];
+#pragma unroll
+        for (int r = 0; r < VEC; ++r) {
+          uint32_t kept, fwd;
+          split_products<L>(e[r], kept, fwd);
+          c[r] = x[r] ^ kept;
+          x[r] ^= fwd;
+#pragma unroll
+          for (int w = 0; w < 32 / L; ++w) e[r][w] = 0;
+        }
+        if (active) store_lanes<VEC>(row, c);
+        row += out_node;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -811,6 +1002,36 @@ int dispatch_repair_chain(const uint32_t* shards, uint32_t* out, const uint32_t*
   return rows <= kPackRows<L> ? launch_repair_chain<L, VEC, 1>(GF_RCHAIN_ARGS)
                               : launch_repair_chain<L, VEC, kGroupPacks<L>>(GF_RCHAIN_ARGS);
 #undef GF_RCHAIN_ARGS
+}
+
+template <int L, int VEC>
+int launch_encode_chain(const uint32_t* src, uint32_t* out, const uint32_t* tab,
+                        const int* plan, int terms, int n_obj, int R, int caches, long long Bp,
+                        long long out_node, long long out_obj, cudaStream_t st) {
+  constexpr int term_bytes = (kNibbleWords<L> + kPlanInts) * 4;  // a term's tables and plan
+  const int cache_bytes = caches * kChainThreads * VEC * 4;
+  // every term at once where they fit a block beside the caches, else
+  // `group` terms at a time
+  const long long all = static_cast<long long>(terms) * term_bytes;
+  const bool whole = cache_bytes + all <= kMaxSmem;
+  const int group = whole ? terms : (kMaxSmem - cache_bytes) / term_bytes;
+  const int smem = cache_bytes + group * term_bytes;
+  auto fn = encode_chain_kernel<L, VEC>;
+  cudaError_t rc = cudaSuccess;
+  if (smem > kStaticSmem)
+    rc = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // persistent blocks: as many as the SMs hold at once, at most one an item
+  int dev = 0, sms = 0, per_sm = 0;
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kChainThreads, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const long long items = (Bp / VEC + kChainThreads - 1) / kChainThreads * n_obj;
+  const long long blocks = static_cast<long long>(max(per_sm, 1)) * sms;
+  fn<<<static_cast<unsigned>(min(items, blocks)), kChainThreads, smem, st>>>(
+      src, out, tab, plan, terms, n_obj, R, caches, whole, group, Bp, out_node, out_obj);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_window(const Window& win) {
@@ -936,4 +1157,33 @@ extern "C" int gf_repair_chain(const void* shards, void* out, const void* tables
   return vec4 ? dispatch_repair_chain<16, 4>(GF_RCHAIN_ARGS)
               : dispatch_repair_chain<16, 1>(GF_RCHAIN_ARGS);
 #undef GF_RCHAIN_ARGS
+}
+
+// A whole unplaced encode chain: `src` (n_obj, R, Bp) contiguous, `out` (n,
+// n_obj, Bp) laid out by the strides given (in lanes; its rows contiguous),
+// `tables` (n, max_b, l/8, 256) and `plan` (terms, 5) on the device: the
+// nodes' terms in chain order (Plan), with `caches` lane caches (at most 8).
+// The caller has made the plan: tables and blocks in range, each node's
+// terms ending in one marked last, and every cache a term reads kept by an
+// earlier term of the same block. Writes every row of `out`.
+extern "C" int gf_encode_chain(const void* src, void* out, const void* tables,
+                               const void* plan, int l, int terms, int n_obj, int R,
+                               int caches, long long Bp, long long out_node, long long out_obj,
+                               void* stream) {
+  if (terms < 1 || n_obj < 1 || R < 1 || Bp < 1 || caches < 0 || caches > kMaxEncodeCaches ||
+      (l != 8 && l != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto sr = static_cast<const uint32_t*>(src);
+  auto ou = static_cast<uint32_t*>(out);
+  auto tb = static_cast<const uint32_t*>(tables);
+  auto pl = static_cast<const int*>(plan);
+  const bool vec4 = Bp % 4 == 0 && out_node % 4 == 0 && out_obj % 4 == 0 && aligned16(src) &&
+                    aligned16(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GF_ECHAIN_ARGS sr, ou, tb, pl, terms, n_obj, R, caches, Bp, out_node, out_obj, st
+  if (l == 8) return vec4 ? launch_encode_chain<8, 4>(GF_ECHAIN_ARGS)
+                          : launch_encode_chain<8, 1>(GF_ECHAIN_ARGS);
+  return vec4 ? launch_encode_chain<16, 4>(GF_ECHAIN_ARGS)
+              : launch_encode_chain<16, 1>(GF_ECHAIN_ARGS);
+#undef GF_ECHAIN_ARGS
 }

@@ -1,7 +1,8 @@
 """Build, bind and launch the hand-written CUDA kernels in ``csrc/``.
 
 ``gf_tick.cu`` holds the pipeline ticks (``chain_tick``, ``repair_tick``) and
-the whole unplaced decode or repair chain in one launch (``repair_chain``),
+the whole unplaced encode, decode or repair chain in one launch
+(``encode_chain``, ``repair_chain``),
 ``gf_mxu.cu`` the bit-lifted encode on the int8 tensor cores
 (``gf_encode_mxu``), ``gf_module.cu`` the driver-API loader of the
 per-matrix kernels, and ``gf_encode.cu`` the template of the
@@ -31,6 +32,7 @@ replay. Outputs are written in place into the caller's buffers.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -119,6 +121,8 @@ def load_library() -> ctypes.CDLL:
     lib.gf_repair_tick.restype = i32
     lib.gf_repair_chain.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64, i64, i64, i32, i32, vp]
     lib.gf_repair_chain.restype = i32
+    lib.gf_encode_chain.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i64, i64, i64, vp]
+    lib.gf_encode_chain.restype = i32
     lib.gf_encode_mxu.argtypes = [vp, vp, vp, i32, i32, i32, i64, i32, i32, i32, vp]
     lib.gf_encode_mxu.restype = i32
     lib.gf_encode_mxu_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
@@ -204,6 +208,7 @@ TABLE_BYTES = 256             # byte values a product table holds
 MAX_TICK_NODES = 256          # active nodes one tick launch takes
 MAX_TICK_SLOTS = 512          # replica slots one chain_tick launch takes
 MAX_CHAIN_NODES = 256         # chain positions one repair_chain launch takes
+ENCODE_CACHES = 8             # lane caches an encode_chain block keeps at most
 
 
 def _byte_tables(planes: np.ndarray, l: int) -> np.ndarray:
@@ -310,6 +315,60 @@ def _checked_table(check, name: str, table, bound: int) -> np.ndarray:
             _CHECKED_TABLES.clear()
         _CHECKED_TABLES[id(table)] = (table, bound, checked)
     return checked
+
+
+def encode_plan(slots) -> tuple[np.ndarray, int]:
+    """The ``encode_chain`` kernel's walk of an (n, max_b) slot table: a
+    (terms, 5) int32 plan, each node's terms in chain order, and the number
+    of lane caches it keeps, at most ``ENCODE_CACHES``. A term is a slot
+    that holds a block: (its flat index i * max_b + s into the tables, the
+    block, the cache it reads the block's lanes from or -1 for global
+    memory, the cache it keeps them in for a later term or -1, 1 on its
+    node's last term, else 0); a node that holds no block gets one term
+    (-1, -1, -1, -1, 1). A block read again later is kept in the lowest
+    free cache while one is free, and its cache is freed at its last read;
+    a node's terms read their caches first, so a cache freed at a node
+    serves the node's own new block: a block held by two nodes crosses HBM
+    once, and the (16,11) code keeps 5 caches."""
+    slots = np.asarray(slots, dtype=np.int32)
+    left = collections.Counter(int(b) for b in slots.ravel() if b >= 0)  # reads to come
+    held: dict[int, int] = {}
+    free = list(range(ENCODE_CACHES))
+    terms = []
+    for i, row in enumerate(slots.tolist()):
+        used = [(s, b) for s, b in enumerate(row) if b >= 0]
+        used.sort(key=lambda sb: sb[1] not in held)          # cached reads first
+        node = []
+        for s, b in used:
+            left[b] -= 1
+            src = dst = -1
+            if b in held:
+                src = held[b] if left[b] else held.pop(b)
+                if not left[b]:
+                    free = sorted(free + [src])
+            elif left[b] and free:
+                held[b] = dst = free.pop(0)
+            node.append([i * slots.shape[1] + s, b, src, dst, 0])
+        node = node or [[-1, -1, -1, -1, 0]]
+        node[-1][4] = 1
+        terms += node
+    plan = np.array(terms, dtype=np.int32).reshape(-1, 5)
+    return plan, int(plan[:, 3].max(initial=-1)) + 1
+
+
+class EncodePlan:
+    """A slot table made ready for ``encode_chain``: ``slots`` the (n,
+    max_b) int32 table on the host, each a block index below ``n_blocks``
+    or -1; ``terms`` its ``encode_plan`` on ``device``; ``caches`` the lane
+    caches the plan keeps. A program makes its plan once, when it is built,
+    and holds it as long as it lives: a captured graph reads ``terms`` at
+    its address."""
+
+    def __init__(self, slots, n_blocks: int, device):
+        self.slots = _check_slots("encode_chain", slots, n_blocks)
+        self.n_blocks = n_blocks
+        terms, self.caches = encode_plan(self.slots)
+        self.terms = torch.from_numpy(terms).to(device)
 
 
 def launch_ranges(node_lo: int, node_count: int, per: int) -> list[tuple[int, int]]:
@@ -520,6 +579,72 @@ def repair_chain(shards: torch.Tensor, shard_rows, out: torch.Tensor,
 
 
 repair_chain.launches = 0
+
+
+def check_encode_chain(name: str, src: torch.Tensor, slots, out: torch.Tensor,
+                       tables: torch.Tensor, l: int) -> np.ndarray:
+    """The operands of a whole encode chain (``encode_chain``): the field,
+    ``src`` (B_obj, R, Bp), ``out`` (n, B_obj, Bp) with B_obj, R and Bp at
+    least 1, ``tables`` (n, max_b, l // 8, 256) for the n nodes of
+    ``slots``, a slot table or an ``EncodePlan`` of blocks below R; returns
+    the slot table as (n, max_b) int32 on the host."""
+    if l not in SUPPORTED_L:
+        raise ValueError(f"{name}: unsupported field GF(2^{l})")
+    if src.dim() != 3 or out.dim() != 3 or tables.dim() != 4:
+        raise ValueError(f"{name}: src {tuple(src.shape)} / out {tuple(out.shape)} / tables "
+                         f"{tuple(tables.shape)} must be (B_obj, R, Bp) / (n, B_obj, Bp) / "
+                         f"(n, max_b, l // 8, 256)")
+    n_obj, R, Bp = src.shape
+    if not isinstance(slots, EncodePlan):
+        slots = _check_slots(name, slots, R)
+    elif slots.n_blocks > R:
+        raise ValueError(f"{name}: the plan's blocks lie below {slots.n_blocks}, "
+                         f"src holds {R}")
+    else:
+        slots = slots.slots
+    n, max_b = slots.shape
+    if (n_obj < 1 or R < 1 or Bp < 1 or n < 1 or out.shape != (n, n_obj, Bp)
+            or tables.shape != (n, max_b, l // 8, TABLE_BYTES)):
+        raise ValueError(f"{name}: out {tuple(out.shape)} / tables {tuple(tables.shape)} do "
+                         f"not match {n} nodes x {max_b} slots of src {tuple(src.shape)}")
+    return slots
+
+
+def encode_chain(src: torch.Tensor, slots, out: torch.Tensor, tables: torch.Tensor,
+                 l: int) -> None:
+    """A whole unplaced encode chain on the card, in one launch (replaces the
+    chain of ``chain_step_kernel`` ticks).
+
+    Operands as ``chain_tick``'s, with no wire, tick or window: ``src``
+    (B_obj, R, Bp) the objects' packed blocks, read in place; ``slots``
+    (n, max_b) host integers, node i's slot s holding block ``slots[i, s]``
+    or nothing (-1), any max_b up to 512, or that table's ``EncodePlan`` on
+    this card; ``out`` (n, B_obj, Bp), any strides with contiguous rows;
+    ``tables`` (n, max_b, l // 8, 256) from ``product_tables``. Writes every
+    node's codeword row, ``out[i, b] = x_i ^ sum_s xi[i, s] * block``, where
+    x_0 = 0 and x_{i+1} = x_i ^ sum_s psi[i, s] * block: what the chain of
+    ticks writes. A bare slot table is made into a plan for this call
+    alone, copied to the card; a program passes the plan it holds, and
+    copies nothing. ``encode_chain.launches`` counts each launch.
+    """
+    device = _check_tensors("encode_chain", strided=("out",), src=src, out=out, tables=tables)
+    checked = check_encode_chain("encode_chain", src, slots, out, tables, l)
+    plan = slots if isinstance(slots, EncodePlan) else EncodePlan(checked, src.shape[1], device)
+    if plan.terms.device != device:
+        raise ValueError(f"encode_chain: the plan lies on {plan.terms.device}, the "
+                         f"tensors on {device}")
+    n_obj, R, Bp = src.shape
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.gf_encode_chain(src.data_ptr(), out.data_ptr(), tables.data_ptr(),
+                                 plan.terms.data_ptr(), l, plan.terms.shape[0], n_obj, R,
+                                 plan.caches, Bp, out.stride(0), out.stride(1), stream)
+    _raise_on("encode_chain", rc)
+    encode_chain.launches += 1
+
+
+encode_chain.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -902,7 +1027,7 @@ def gf_encode_mxu(data: torch.Tensor, operand: torch.Tensor, out: torch.Tensor,
 
 gf_encode_mxu.launches = 0
 
-KERNELS = (chain_tick, repair_tick, repair_chain, gf_encode, gf_encode_mxu)
+KERNELS = (chain_tick, repair_tick, repair_chain, encode_chain, gf_encode, gf_encode_mxu)
 
 
 def reset_launch_counts() -> None:

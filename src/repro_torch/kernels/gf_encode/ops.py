@@ -2,9 +2,9 @@
 
 ``chain_tick`` / ``repair_tick`` run one pipeline tick over the node axis
 (the form ``repro_torch.storage.chain`` and ``storage.multi`` drive), with
-the objects in lockstep or staggered over a window. ``repair_chain`` runs
-a whole unplaced decode or repair chain: one launch on the card, the ticks
-of its schedule on the CPU. ``chain_step`` /
+the objects in lockstep or staggered over a window. ``encode_chain`` and
+``repair_chain`` run a whole unplaced encode, or decode or repair, chain:
+one launch on the card, the ticks of its schedule on the CPU. ``chain_step`` /
 ``repair_step`` keep the single-node shapes of the JAX package's ops at the
 public boundary — one object, or a batch with a leading object axis — and
 run as a one-node, one-chunk tick.
@@ -71,6 +71,44 @@ def repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l: int, t: i
     fn = _route(shards, kernel.repair_tick, ref.repair_tick_ref)
     fn(wire_in, wire_out, shards, shard_rows, out, tables, l, t, num_chunks,
        node_lo, node_count, head_zero, stagger, last_forwards)
+
+
+def encode_chain(src, slots, out, tables, l: int, num_chunks: int, stagger: int = 0) -> None:
+    """A whole unplaced encode chain: ``out[i, b]`` gets node i's codeword
+    row of object b, node 0 starting from a zero wire; ``slots`` a slot
+    table or its ``kernel.EncodePlan``; see ``kernel.encode_chain`` for
+    shapes. On the card, one launch of
+    ``kernel.encode_chain``, in one ``repro_torch.tick`` span: the running
+    combination rides the chain in registers, and ``num_chunks`` and
+    ``stagger`` change nothing. On the CPU, the chain the pipelined entry
+    points run tick by tick (``pipeline.software_pipeline``, or
+    ``staggered_pipeline`` for a stagger of 1 or more): one ``chain_tick`` a
+    tick, looked up on this module at each tick, over fresh zeroed wires of
+    n rows."""
+    fn = _route(src, _encode_chain_cuda, _encode_chain_ticks)
+    fn(src, slots, out, tables, l, num_chunks, stagger)
+
+
+def _encode_chain_cuda(src, slots, out, tables, l: int, num_chunks: int, stagger: int) -> None:
+    del num_chunks, stagger        # one launch runs every chunk of every object
+    with trace.span("repro_torch.tick"):
+        kernel.encode_chain(src, slots, out, tables, l)
+
+
+def _encode_chain_ticks(src, slots, out, tables, l: int, num_chunks: int,
+                        stagger: int) -> None:
+    slots = kernel.check_encode_chain("encode_chain", src, slots, out, tables, l)
+    n, (n_obj, _, Bp) = slots.shape[0], src.shape
+
+    def step(wire_in, wire_out, t, lo, count):
+        chain_tick(wire_in, wire_out, src, slots, out, tables, l, t, num_chunks, lo, count,
+                   stagger)
+    if stagger:
+        pipeline.staggered_pipeline(step, n, num_chunks, (Bp // num_chunks,), num_objects=n_obj,
+                                    stagger=stagger, device=src.device)
+    else:
+        pipeline.software_pipeline(step, n, num_chunks, (n, n_obj, Bp // num_chunks),
+                                   device=src.device)
 
 
 def repair_chain(shards, shard_rows, out, tables, l: int, num_chunks: int,

@@ -7,10 +7,12 @@ forwards the updated combination (psi path). Blocks stream through the
 pipeline (``repro_torch.core.pipeline``) in ``num_chunks`` chunks, and each
 tick is ONE launch of the hand-written CUDA tick kernel over the active
 nodes (``repro_torch.kernels.gf_encode``) on packed int32 lanes. The encode
-tick reads each node's replica blocks in place through a slot table, so
-the placement is never copied; the decode reads the survivors' shards in
-place through a row table, and on the card runs the whole chain as one
-``repair_chain`` launch whose partial sums never leave its registers.
+reads each node's replica blocks in place through a slot table, so the
+placement is never copied; the decode reads the survivors' shards in place
+through a row table. On the card an unplaced chain is one launch, not a
+tick loop: the encode one ``encode_chain``, whose running combination never
+leaves its registers, the decode one ``repair_chain``, whose partial sums
+never do. Placed chains and card layouts keep the ticks and their wires.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks run the kernels' plain PyTorch versions. Asking for a CUDA
@@ -214,14 +216,18 @@ class CardLayout:
 def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch.device,
                  placement, drive, layout: CardLayout | None = None):
     """The tick loop of an encode program, ``ticks(src, out_nodes, wires)``
-    over ``src`` (B_obj, k, Bp) and ``out_nodes`` (n, B_obj, Bp), which
-    ``drive(step, wires)`` runs through the pipeline driver. Unplaced: one
-    ``chain_tick`` launch over the active nodes a tick. Placed: one a
-    position, each reading its own replica blocks and writing its codeword
-    rows. Over a card ``layout``, ``src`` and ``out_nodes`` are lists, one
-    a card, (B_obj, len(layout.blocks[c]), Bp) and (positions, B_obj, Bp)
-    on card c, and each card's launch at a tick runs over its active nodes
-    at tick t minus its first position, on its own slots and tables."""
+    over ``src`` (B_obj, k, Bp) and ``out_nodes`` (n, B_obj, Bp). Unplaced:
+    the whole chain in one ``ops.encode_chain``, which takes no wires (on
+    the card one launch, the running combination kept in registers; on the
+    CPU the ticks of its schedule), over the ``kernel.EncodePlan`` made here
+    once, as the tables are. Placed: ``drive(step, wires)`` runs one
+    ``chain_tick`` launch a position a tick through the pipeline driver,
+    each reading its own replica blocks and writing its codeword rows. Over
+    a card ``layout``, ``src`` and ``out_nodes`` are lists, one a card,
+    (B_obj, len(layout.blocks[c]), Bp) and (positions, B_obj, Bp) on card c,
+    and each card's launch at a tick runs over its active nodes at tick t
+    minus its first position, on its own slots and tables: placed chains
+    and layouts need a wire that crosses devices, the unplaced chain none."""
     l = code.l
     if layout is not None:
         m = layout.groups[0].count
@@ -240,11 +246,10 @@ def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch
     slots = placement_slots(code)
     tables = device_tables(product_tables(code), device)
     if placement is None:
+        plan = kernel.EncodePlan(slots, code.k, device)
+
         def ticks(src, out_nodes, wires):
-            def step(wire_in, wire_out, t, lo, count):
-                ops.chain_tick(wire_in, wire_out, src, slots, out_nodes, tables, l, t,
-                               num_chunks, lo, count, stagger)
-            drive(step, wires)
+            ops.encode_chain(src, plan, out_nodes, tables, l, num_chunks, stagger)
         return ticks
     pos = positions(placement, device, slots, tables)
 
@@ -445,11 +450,11 @@ def encode_operands(code: ErasureCode, data_packed: torch.Tensor):
 def _build_encode(code: ErasureCode, sc_words: int, num_chunks: int,
                   device: torch.device, placement=None) -> streaming.Program:
     """The encode program of one stripe geometry: (k, sc_words) words ->
-    (n, sc_words). The ticks read each node's replica blocks in place
-    through the slot table and write every active node's codeword chunk
-    straight into the (n, Bp) output; the wire has n rows (the last node's
-    forward is never read). Placed: one launch a position
-    (``encode_ticks``)."""
+    (n, sc_words). Each node's replica blocks are read in place through the
+    slot table and its codeword row written straight into the (n, Bp)
+    output. Unplaced it keeps no wires (``encode_ticks``: one
+    ``encode_chain``); placed, one launch a position a tick over wires of n
+    rows (the last node's forward is never read)."""
     n = code.n
     S = sc_words // gf.LANES[code.l] // num_chunks
 
@@ -461,8 +466,9 @@ def _build_encode(code: ErasureCode, sc_words: int, num_chunks: int,
     def ticks(src, out, wires):
         run(src[None], out[:, None], wires)      # (1, k, Bp), (n, 1, Bp): views
 
+    wire_shape = None if placement is None else (n, 1, S)
     return streaming.Program(device=device, l=code.l, sc_words=sc_words, in_lead=(code.k,),
-                             out_lead=(n,), wire_shape=(n, 1, S), ticks=ticks,
+                             out_lead=(n,), wire_shape=wire_shape, ticks=ticks,
                              placement=placement)
 
 
@@ -473,10 +479,11 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
     """Archive object ``data`` (k, B) words -> codeword blocks (n, B) words.
 
     ``data`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
-    (GF(2^16)) words; the result is a tensor of words on ``device``.
-    Each tick is one ``chain_tick`` launch over the active nodes, reading
-    the replica blocks in place. ``num_chunks=None`` is tuned
-    (``autotune.num_chunks_for``).
+    (GF(2^16)) words; the result is a tensor of words on ``device``. On the
+    card the whole chain is one ``encode_chain`` launch, reading the
+    replica blocks in place and carrying the running combination in
+    registers; on the CPU, and placed, one ``chain_tick`` a tick over the
+    active nodes. ``num_chunks=None`` is tuned (``autotune.num_chunks_for``).
 
     ``superchunk_words`` streams a host-resident object through the card
     as independent stripes of that many words a block, each one replay of

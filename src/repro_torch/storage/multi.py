@@ -9,12 +9,14 @@ is still in flight toward it:
   ticks(loop)      = B * (C + n - 1)
   ticks(staggered) = C + n - 1 + (B - 1) * stagger
 
-On one card each tick is ONE launch of the tick kernel over the nodes in
-the run's span, whose grid's object axis runs over the ``window_size``
-slots of the wire (``repro_torch.core.pipeline.staggered_pipeline``): per
-tick the work of at most W objects a node. ``stagger=1`` overlaps the
-chains the most; ``stagger=num_chunks`` runs them back to back, one object
-a node a tick.
+Each tick is ONE launch of the tick kernel over the nodes in the run's
+span, whose grid's object axis runs over the ``window_size`` slots of the
+wire (``repro_torch.core.pipeline.staggered_pipeline``): per tick the work
+of at most W objects a node. ``stagger=1`` overlaps the chains the most;
+``stagger=num_chunks`` runs them back to back, one object a node a tick.
+That is the schedule the CPU and the placed chains run. On the card an
+unplaced batch is one launch for every object, chunk and node, with no
+wire: ``encode_chain`` for an encode, ``repair_chain`` for a decode.
 
 Layouts are the JAX package's: objects (B_obj, k, B) -> codewords
 (B_obj, n, B), survivors' shards (B_obj, n_alive, B) -> objects
@@ -111,13 +113,13 @@ def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks:
                        stagger: int, device: torch.device, placement=None,
                        layout: CardLayout | None = None):
     """The staggered encode program: (B_obj, k, sc_words) -> (B_obj, n,
-    sc_words) words. Every (node, object) with a chunk at a tick reads its
-    replica blocks in place, writes its codeword chunk into object b's row
-    of the output and forwards its wire in slot b % W. Placed: one launch
-    a position (``chain.encode_ticks``). Over a card ``layout``, a
-    ``streaming.CardProgram``: card c's (B_obj, len(layout.blocks[c]),
-    sc_words) -> its (B_obj, positions, sc_words), one launch a card a
-    tick."""
+    sc_words) words. Every (node, object) reads its replica blocks in place
+    and writes its codeword row into object b's row of the output. Unplaced
+    it keeps no wires (``chain.encode_ticks``: one ``encode_chain``);
+    placed, one launch a position a tick, each forwarding its wire in slot
+    b % W. Over a card ``layout``, a ``streaming.CardProgram``: card c's
+    (B_obj, len(layout.blocks[c]), sc_words) -> its (B_obj, positions,
+    sc_words), one launch a card a tick."""
     n = code.n
     S = sc_words // gf.LANES[code.l] // num_chunks
     W = pipeline.window_size(num_chunks, B_obj, stagger)
@@ -139,9 +141,10 @@ def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks:
     def ticks(src, out, wires):
         run(src, out.transpose(0, 1), wires)        # out as (n, B_obj, Bp), a view
 
+    wire_shape = None if placement is None else (n, W, S)
     return streaming.Program(device=device, l=code.l, sc_words=sc_words,
                              in_lead=(B_obj, code.k), out_lead=(B_obj, n),
-                             wire_shape=(n, W, S), ticks=ticks, placement=placement)
+                             wire_shape=wire_shape, ticks=ticks, placement=placement)
 
 
 @trace.root("encode_many")
@@ -152,12 +155,13 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     """Archive B_obj objects concurrently: (B_obj, k, B) -> (B_obj, n, B).
 
     ``objects`` is a numpy array or a tensor of uint8 (GF(2^8)) or uint16
-    (GF(2^16)) words; the result is a tensor of words on ``device``. Each
-    tick is one ``chain_tick`` launch over the nodes in the run's span:
-    every (node, object) with a chunk at that tick reads its replica blocks
-    in place through the slot table, writes its codeword chunk straight
-    into object b's row of the output, and forwards its wire in slot
-    b % W. ``num_chunks=None`` and ``stagger=None`` are tuned
+    (GF(2^16)) words; the result is a tensor of words on ``device``. On the
+    card the whole batch is one ``encode_chain`` launch. On the CPU, and
+    placed, each tick is one ``chain_tick`` launch over the nodes in the
+    run's span: every (node, object) with a chunk at that tick reads its
+    replica blocks in place through the slot table, writes its codeword
+    chunk straight into object b's row of the output, and forwards its wire
+    in slot b % W. ``num_chunks=None`` and ``stagger=None`` are tuned
     (``autotune``). ``superchunk_words`` streams the whole batch
     stripe by stripe, each stripe one staggered run of the same cached
     program, and ``sink(s, (B_obj, n, W) words)`` takes each stripe's

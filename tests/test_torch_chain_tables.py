@@ -249,17 +249,18 @@ def test_pipelined_encode_on_cuda_reads_blocks_in_place(cuda, n, k, l, chunks, m
     data = data.astype(gf.WORD_DTYPE[l])
     words = torch.from_numpy(data).to(cuda)
     seen = []
-    tick = chain.ops.chain_tick
+    launch = chain.ops._encode_chain_cuda
 
-    def spy(wire_in, wire_out, src, *rest):
+    def spy(src, *rest):
         seen.append(src.data_ptr())
-        return tick(wire_in, wire_out, src, *rest)
+        return launch(src, *rest)
 
-    monkeypatch.setattr(chain.ops, "chain_tick", spy)
+    monkeypatch.setattr(chain.ops, "_encode_chain_cuda", spy)
     kernel.reset_launch_counts()
     got = chain.pipelined_encode(code, words, num_chunks=chunks)
-    assert kernel.chain_tick.launches == pipeline.num_ticks(chunks, n)
-    assert seen == [words.data_ptr()] * pipeline.num_ticks(chunks, n)
+    # one encode_chain launch, on the words' own lanes: nothing gathered
+    assert kernel.encode_chain.launches == 1 and kernel.chain_tick.launches == 0
+    assert seen == [words.data_ptr()]
     np.testing.assert_array_equal(got.cpu().numpy(), code.encode_np(data))
 
 

@@ -591,7 +591,6 @@ def test_elastic_restore_onto_smaller_mesh(tmp_path):
 def test_device_direct_routes_on_the_card(tmp_path, cuda, l):
     """Each route's kernels launch, and the card's coded blobs and restored
     leaves equal the CPU run's (the kernels' plain versions)."""
-    from repro_torch.core import pipeline
     acfg = arc.ArchiveConfig(n=8, k=4, l=l, seed=3)
     rng = np.random.default_rng(l)
     state = {"w": torch.from_numpy(rng.standard_normal((64, 33)).astype(np.float32)),
@@ -599,7 +598,7 @@ def test_device_direct_routes_on_the_card(tmp_path, cuda, l):
              "step": np.int64(5)}
     on_card = {k: (v.to(cuda) if isinstance(v, torch.Tensor) else v) for k, v in state.items()}
     ref = devio.save_state(obj.NodeStore(str(tmp_path / "cpu"), 8), 1, state, acfg, device="cpu")
-    for route, kw, want in (("chain", {}, "chain_tick"),
+    for route, kw, want in (("chain", {}, "encode_chain"),
                             ("static", {"use_devices": False}, "gf_encode")):
         store = obj.NodeStore(str(tmp_path / route), 8)
         kernel.reset_launch_counts()
@@ -607,7 +606,7 @@ def test_device_direct_routes_on_the_card(tmp_path, cuda, l):
         counts = kernel.launch_counts()
         assert counts[want] >= 1 and m["coded_digests"] == ref["coded_digests"]
         if route == "chain":
-            assert counts["chain_tick"] == pipeline.num_ticks(acfg.num_chunks, 8)
+            assert counts["encode_chain"] == 1 and counts["chain_tick"] == 0
         for i in (0, 3, 5, 6):
             store.fail_node(i)
         kernel.reset_launch_counts()

@@ -476,5 +476,6 @@ def test_soak_on_card_equals_cpu(tmp_path):
         kernel.reset_launch_counts()
         runs.append((eng.run(30), eng.summary(), kernel.launch_counts(), eng))
     assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
-    assert runs[0][2]["chain_tick"] > 0 and runs[0][2]["repair_chain"] > 0
+    assert runs[0][2]["encode_chain"] > 0 and runs[0][2]["repair_chain"] > 0
+    assert runs[0][2]["chain_tick"] == 0
     assert_same_tree(runs[0][3].store.root, runs[1][3].store.root)

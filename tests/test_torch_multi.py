@@ -530,15 +530,16 @@ def test_staggered_tick_over_300_nodes_matches_plain(cuda, which):
 @pytest.mark.parametrize("n,k,l", [(8, 4, 8), (16, 11, 16)])
 def test_entry_points_many_on_cuda_match_cpu(cuda, n, k, l, stagger):
     """The three staggered entry points on the card == on the CPU: the
-    encode in ``num_ticks_many`` launches of its tick kernel, the decode and
-    the repair each in one ``repair_chain`` launch."""
+    encode in one ``encode_chain`` launch, the decode and the repair each in
+    one ``repair_chain`` launch."""
     code = rr.RapidRAIDCode.make(n, k, l=l, seed=11)
     C, n_obj = 8, 5
     objects = words(np.random.default_rng(stagger), (n_obj, k, gf.LANES[l] * C * 33), l)
     want = multi.pipelined_encode_many(code, objects, C, stagger, device="cpu")
     kernel.reset_launch_counts()
     got = multi.pipelined_encode_many(code, objects, C, stagger, device=cuda)
-    assert kernel.launch_counts()["chain_tick"] == pipeline.num_ticks_many(C, n, n_obj, stagger)
+    assert kernel.launch_counts()["encode_chain"] == 1
+    assert kernel.launch_counts()["chain_tick"] == 0
     assert torch.equal(gf.pack_u32(got, l).cpu(), gf.pack_u32(want, l))
     lost = first_loss(code, n - k, seed=1)
     ids = [i for i in range(n) if i not in lost]

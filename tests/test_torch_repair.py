@@ -276,7 +276,7 @@ def test_slice_on_cuda_matches_cpu(cuda, n, k, l):
     ccw = atomic.classical_distributed_encode(ccode, data)
     torch.cuda.synchronize()
     assert kernel.launch_counts() == {"chain_tick": 0, "gf_encode_mxu": 0, "repair_tick": 0,
-                                      "repair_chain": 1, "gf_encode": 4}
+                                      "repair_chain": 1, "encode_chain": 0, "gf_encode": 4}
     np.testing.assert_array_equal(rep.cpu().numpy(), cw[missing])
     np.testing.assert_array_equal(star.cpu().numpy(), cw[missing])
     np.testing.assert_array_equal(read.cpu().numpy(), data[[0, k - 1], 64:192])

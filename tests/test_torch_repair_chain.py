@@ -176,14 +176,18 @@ def _code_case(l):
 def test_unplaced_sums_programs_keep_no_wires():
     """An unplaced decode or repair program keeps no wires (the card's
     launch has none to keep, the CPU's ticks make theirs); a placed one
-    keeps its positions' wires, and an encode program its two."""
+    keeps its positions' wires. Encode programs alike since the unplaced
+    encode is one ``encode_chain``: none unplaced, n rows placed."""
     code, lost, ids = _code_case(16)
     B = gf.LANES[16] * CHUNKS * 4
     assert chain.decode_program(code, ids, B, CHUNKS, device="cpu").wire_shape is None
     mesh = chain.make_chain_mesh(len(ids), devices=["cpu"] * len(ids))
     placed = chain.decode_program(code, ids, B, CHUNKS, mesh=mesh)
     assert placed.wire_shape == (len(ids), 1, code.k, B // gf.LANES[16] // CHUNKS)
-    assert chain.encode_program(code, B, CHUNKS, device="cpu").wire_shape is not None
+    assert chain.encode_program(code, B, CHUNKS, device="cpu").wire_shape is None
+    encode_mesh = chain.make_chain_mesh(code.n, devices=["cpu"] * code.n)
+    assert (chain.encode_program(code, B, CHUNKS, mesh=encode_mesh).wire_shape
+            == (code.n, 1, B // gf.LANES[16] // CHUNKS))
     builds = [lambda: multi._build_decode_many(code, tuple(ids), 3, B, CHUNKS, 1,
                                                torch.device("cpu")),
               lambda: repair._build_repair(code, tuple(lost), tuple(ids), None, B, CHUNKS, 0,

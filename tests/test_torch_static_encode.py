@@ -160,8 +160,8 @@ def test_encode_wrappers_refuse_cpu_tensors_and_bad_shapes():
                              torch.from_numpy(kernel.mxu_operand(np.ones((17, 11)), 16)),
                              z(17, 8, dtype=torch.uint16), 16)
     assert kernel.launch_counts() == before and kernel.gf_encode.compiles == compiles
-    assert set(before) == {"chain_tick", "repair_tick", "repair_chain", "gf_encode",
-                           "gf_encode_mxu"}
+    assert set(before) == {"chain_tick", "repair_tick", "repair_chain", "encode_chain",
+                           "gf_encode", "gf_encode_mxu"}
     with pytest.raises(ValueError):
         ops.encode_packed(np.ones((2, 3), np.int64), z(4, 8), 8)
     with pytest.raises(ValueError):

@@ -472,7 +472,7 @@ def test_graph_replay_equals_tick_loop_and_counts_launches(cuda):
     loop = program(x)
     torch.cuda.synchronize()
     per_run = kernel.launch_counts()
-    assert per_run["chain_tick"] == pipeline.num_ticks(8, 16)
+    assert per_run["encode_chain"] == 1 and per_run["chain_tick"] == 0
     st = program.stripes(1)
     st.d_in[0].copy_(gf.pack_u32(x, 16))
     kernel.reset_launch_counts()
@@ -494,7 +494,8 @@ def test_streamed_run_counts_every_stripe_and_builds_once(cuda):
     kernel.reset_launch_counts()
     got = chain.pipelined_encode(code, data, 8, superchunk_words=16 * 8 * 4)
     assert jitcache.stats()["misses"] == misses
-    assert kernel.launch_counts()["chain_tick"] == 5 * pipeline.num_ticks(8, 16)
+    assert kernel.launch_counts()["encode_chain"] == 5
+    assert kernel.launch_counts()["chain_tick"] == 0
     np.testing.assert_array_equal(got.numpy(), code.encode_np(data))
 
 

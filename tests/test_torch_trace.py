@@ -195,12 +195,15 @@ def test_wire_counter_counts_a_monolithic_calls_two_wires(entry):
 
 def test_wire_counter_still_where_the_caller_keeps_its_wires():
     """What a streamed program's stripes do: wires made once, then every
-    run of the ticks over them zeroes nothing."""
+    run of the ticks over them zeroes nothing. A placed encode program
+    keeps wires (an unplaced one keeps none: one ``encode_chain``): each
+    position's incoming wire is zeroed once."""
     code, _, _, _ = geometry()
-    program = chain.encode_program(code, B, CHUNKS, device="cpu")
+    mesh = chain.make_chain_mesh(N, devices=["cpu"] * N)
+    program = chain.encode_program(code, B, CHUNKS, mesh=mesh)
     before = pipeline.stats()["wire_bytes_zeroed"]
-    wires = pipeline.make_wires(program.wire_shape, program.device)
-    assert pipeline.stats()["wire_bytes_zeroed"] - before == 2 * 4 * math.prod((N, 1, S))
+    wires = pipeline.make_wires(program.wire_shape, program.device, program.placement)
+    assert pipeline.stats()["wire_bytes_zeroed"] - before == N * 4 * math.prod((1, 1, S))
     data = np.random.default_rng(3).integers(0, 1 << L, size=(K, B)).astype(np.uint16)
     src = gf.pack_u32(torch.from_numpy(data), L)
     out = torch.empty((N, src.shape[-1]), dtype=torch.int32)
@@ -246,16 +249,16 @@ def test_streamed_call_zeroes_no_wire_once_its_stripes_exist(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_every_launch_of_a_call_on_the_card_is_in_a_span(cuda, entry):
-    fn, ticks, _ = calls("cuda")[entry]
+    fn, _, _ = calls("cuda")[entry]
     fn()
     torch.cuda.synchronize()
     acts = (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
     _, events = traced(lambda: (fn(), torch.cuda.synchronize()), 2, acts)
     spans = program_spans(events)
     assert sum(n == f"repro_torch.{entry}" for _, _, n in spans) == 2
-    # a decode or repair chain on the card is one launch in one tick span
-    one = entry in ("decode", "repair", "decode_many", "repair_many")
-    assert sum(n == "repro_torch.tick" for _, _, n in spans) == 2 * (1 if one else ticks)
+    # an unplaced chain on the card, encode, decode or repair, is one launch
+    # in one tick span
+    assert sum(n == "repro_torch.tick" for _, _, n in spans) == 2
     device = {e["args"].get("correlation") for e in events if e.get("ph") == "X"
               and e.get("cat") in ("kernel", "gpu_memset")} - {None}
     launches = [e for e in events if e.get("ph") == "X"
