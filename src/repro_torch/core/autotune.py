@@ -21,6 +21,14 @@ encodes, decodes and repairs bit-identically to the hand-tuned one.
   ``repro_torch.core.jitcache`` (backend, entry point, code spec, shapes),
   so a warm process performs ZERO search probes (``stats()`` shows it).
 
+Only ticks read a chunk count or a stagger: the CPU's, a placed chain's
+(``mesh=`` / ``order=``) and a card layout's. So only there do the entry
+points' ``num_chunks=None`` and ``stagger=None`` resolve through
+``num_chunks_for`` / ``stagger_for`` (``storage.chain.call_plan``); an
+unplaced call on the card is one launch that reads no schedule and reaches
+no function here. The chain probes of ``prewarm`` and ``calibrate_chain``
+run on such a tick path: on a card, the chain placed on that one card.
+
 The backend part of every key is the port's own, ``torch-cuda`` or
 ``torch-cpu`` (the device the tuned call runs on), never the JAX package's
 ``cpu`` / ``gpu``: the two packages may share one cache file, and neither
@@ -456,6 +464,18 @@ def random_words(shape, l: int, device) -> torch.Tensor:
     return gf.unpack_u32(lanes.to(torch.int32), l)
 
 
+def _chain_probe_where(code, dev: torch.device) -> dict:
+    """Where a chain probe runs, as an entry point's keywords: the CPU's
+    ticks; on a card, the chain placed on that one card (a mesh of n copies
+    of it), the tick path that reads a tuned schedule. The card's unplaced
+    chain is one launch whatever the schedule, so timing it would persist
+    noise."""
+    if dev.type != "cuda":
+        return {"device": dev}
+    from repro_torch.storage import chain as chain_lib
+    return {"mesh": chain_lib.make_chain_mesh(code.n, devices=[dev] * code.n)}
+
+
 def calibrate_chain(code, nwords: int = 1 << 15,
                     chunk_counts: Sequence[int] = (1, 2, 4, 8, 16),
                     iters: int = _PROBE_ITERS, device=None) -> dict:
@@ -465,12 +485,14 @@ def calibrate_chain(code, nwords: int = 1 << 15,
     a seeded (k, nwords) object made on the device, least-squares-fits
     ``topology.fit_chain_constants``, cross-checks every sample against the
     fitted model AND a byte-count prediction (``program_cost``), and
-    persists the calibration per (backend, l). One card holds the whole
-    chain, so this runs on any one device.
+    persists the calibration per (backend, l). On a card the chain is
+    placed on that one card (``_chain_probe_where``), whose ticks are what
+    the fit models.
     """
     from repro_torch.storage import chain as chain_lib
 
     dev = _device(device)
+    where = _chain_probe_where(code, dev)
     lanes = gf.LANES[code.l]
     chunk_counts = sorted({int(c) for c in chunk_counts
                            if c >= 1 and nwords % (lanes * c) == 0})
@@ -484,8 +506,7 @@ def calibrate_chain(code, nwords: int = 1 << 15,
     samples, cost = [], {}
     for c in chunk_counts:
         t = _median_time(
-            lambda: chain_lib.pipelined_encode(code, data, num_chunks=c, device=dev),
-            iters, dev)
+            lambda: chain_lib.pipelined_encode(code, data, num_chunks=c, **where), iters, dev)
         samples.append((c, t))
         cost[str(c)] = program_cost(code, nwords, c)
     topo, pred = topo_lib.fit_chain_constants(samples, code.n, code.k,
@@ -622,9 +643,10 @@ def prewarm(code, nwords: int = 1 << 14, b_obj: int = 4,
     kernels' widths for every admissible chunk count, the chain
     calibration sweep (fits compute_rate / tick_overhead) and the plan
     parameters (num_chunks for encode / encode_many, stagger). Returns a
-    report of every tuned value. Requires ``RAPIDRAID_TUNE=search``. One
-    card holds the whole chain, so the chain probes always run (the
-    reference needs ``code.n`` devices for them). A calibration already
+    report of every tuned value. Requires ``RAPIDRAID_TUNE=search``. The
+    chain probes run where a tuned schedule is read: the CPU's ticks, or
+    the chain placed on the one card (``_chain_probe_where``), so they
+    always run (the reference needs ``code.n`` devices). A calibration already
     cached for this geometry is reused, not measured again, so a warm
     cache makes zero probes.
     """
@@ -656,18 +678,18 @@ def prewarm(code, nwords: int = 1 << 14, b_obj: int = 4,
     cal = _cached_calibration(code, nwords, dev)
     report["calibration"] = (cal if cal is not None
                              else calibrate_chain(code, nwords, chunk_counts, device=dev))
+    where = _chain_probe_where(code, dev)
     report["num_chunks_encode"] = num_chunks_for(
         "encode", code, nwords, device=dev,
-        probe=lambda c: chain_lib.pipelined_encode(code, data, num_chunks=c, device=dev))
+        probe=lambda c: chain_lib.pipelined_encode(code, data, num_chunks=c, **where))
     objs = random_words((b_obj, code.k, nwords), l, dev)
     nc_many = num_chunks_for(
         "encode_many", code, nwords, extra_key=(b_obj,), device=dev,
-        probe=lambda c: multi_lib.pipelined_encode_many(code, objs, num_chunks=c,
-                                                        device=dev))
+        probe=lambda c: multi_lib.pipelined_encode_many(code, objs, num_chunks=c, **where))
     report["num_chunks_encode_many"] = nc_many
     report["stagger"] = stagger_for(
         code, b_obj, nc_many, device=dev,
         probe=lambda s: multi_lib.pipelined_encode_many(
-            code, objs, num_chunks=nc_many, stagger=s, device=dev))
+            code, objs, num_chunks=nc_many, stagger=s, **where))
     report["stats"] = stats()
     return report

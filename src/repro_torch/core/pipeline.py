@@ -311,6 +311,30 @@ def staggered_pipeline(step_fn: Callable, n: int, num_chunks: int,
     return _run(step_fn, n, ticks, active, wires, placement)
 
 
+def chain_wire_shape(n: int, num_chunks: int, slot_shape: tuple[int, ...],
+                     num_objects: int = 1, stagger: int = 0) -> tuple[int, ...]:
+    """The (n, W) + ``slot_shape`` wire of ``run_chain``: W the objects in
+    lockstep (``stagger`` 0), else ``window_size``."""
+    W = window_size(num_chunks, num_objects, stagger) if stagger else num_objects
+    return (n, W) + tuple(slot_shape)
+
+
+def run_chain(step_fn: Callable, n: int, num_chunks: int, slot_shape: tuple[int, ...], *,
+              num_objects: int = 1, stagger: int = 0, device: torch.device, wires=None,
+              placement=None, groups=None) -> int:
+    """The one choice of driver for a chain of ``num_objects`` objects, wire
+    slots of ``slot_shape``: ``software_pipeline`` with the objects in
+    lockstep (``stagger`` 0), else ``staggered_pipeline`` (which alone
+    takes ``groups``); returns the number of ticks."""
+    if stagger:
+        return staggered_pipeline(step_fn, n, num_chunks, slot_shape, num_objects=num_objects,
+                                  stagger=stagger, device=device, wires=wires,
+                                  placement=placement, groups=groups)
+    return software_pipeline(step_fn, n, num_chunks,
+                             chain_wire_shape(n, num_chunks, slot_shape, num_objects),
+                             device=device, wires=wires, placement=placement)
+
+
 # ---------------------------------------------------------------------------
 # Grouped placement: a card layout, one launch a card a tick, hops between
 # ---------------------------------------------------------------------------

@@ -73,24 +73,20 @@ def repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l: int, t: i
        node_lo, node_count, head_zero, stagger, last_forwards)
 
 
-def encode_chain(src, slots, out, tables, l: int, num_chunks: int, stagger: int = 0) -> None:
+def encode_chain(src, slots, out, tables, l: int, num_chunks: int | None,
+                 stagger: int | None = 0) -> None:
     """A whole unplaced encode chain: ``out[i, b]`` gets node i's codeword
     row of object b, node 0 starting from a zero wire; ``slots`` a slot
-    table or its ``kernel.EncodePlan``; see ``kernel.encode_chain`` for
-    shapes. On the card, one launch of
-    ``kernel.encode_chain``, in one ``repro_torch.tick`` span: the running
-    combination rides the chain in registers, and ``num_chunks`` and
-    ``stagger`` change nothing. On the CPU, the chain the pipelined entry
-    points run tick by tick (``pipeline.software_pipeline``, or
-    ``staggered_pipeline`` for a stagger of 1 or more): one ``chain_tick`` a
-    tick, looked up on this module at each tick, over fresh zeroed wires of
-    n rows."""
-    fn = _route(src, _encode_chain_cuda, _encode_chain_ticks)
-    fn(src, slots, out, tables, l, num_chunks, stagger)
+    table or its ``kernel.EncodePlan``; shapes as ``kernel.encode_chain``'s.
+    On the card, one launch of it in one ``repro_torch.tick`` span, which
+    takes no schedule. On the CPU, the ticks of the chain's ``num_chunks``
+    and ``stagger`` (``pipeline.run_chain``): one ``chain_tick`` a tick,
+    looked up on this module at each tick, over fresh zeroed wires."""
+    ticks = functools.partial(_encode_chain_ticks, num_chunks=num_chunks, stagger=stagger)
+    _route(src, _encode_chain_cuda, ticks)(src, slots, out, tables, l)
 
 
-def _encode_chain_cuda(src, slots, out, tables, l: int, num_chunks: int, stagger: int) -> None:
-    del num_chunks, stagger        # one launch runs every chunk of every object
+def _encode_chain_cuda(src, slots, out, tables, l: int) -> None:
     with trace.span("repro_torch.tick"):
         kernel.encode_chain(src, slots, out, tables, l)
 
@@ -103,33 +99,24 @@ def _encode_chain_ticks(src, slots, out, tables, l: int, num_chunks: int,
     def step(wire_in, wire_out, t, lo, count):
         chain_tick(wire_in, wire_out, src, slots, out, tables, l, t, num_chunks, lo, count,
                    stagger)
-    if stagger:
-        pipeline.staggered_pipeline(step, n, num_chunks, (Bp // num_chunks,), num_objects=n_obj,
-                                    stagger=stagger, device=src.device)
-    else:
-        pipeline.software_pipeline(step, n, num_chunks, (n, n_obj, Bp // num_chunks),
-                                   device=src.device)
+    pipeline.run_chain(step, n, num_chunks, (Bp // num_chunks,), num_objects=n_obj,
+                       stagger=stagger, device=src.device)
 
 
-def repair_chain(shards, shard_rows, out, tables, l: int, num_chunks: int,
-                 stagger: int = 0) -> None:
+def repair_chain(shards, shard_rows, out, tables, l: int, num_chunks: int | None,
+                 stagger: int | None = 0) -> None:
     """A whole unplaced decode or repair chain: ``out[b]`` gets the sums the
     last of the positions of ``shard_rows`` writes, node 0 starting from
-    zero sums; see ``kernel.repair_chain`` for shapes. On the card, one
-    launch of ``kernel.repair_chain``, in one ``repro_torch.tick`` span: the
-    sums ride the chain in registers, and ``num_chunks`` and ``stagger``
-    change nothing. On the CPU, the chain the pipelined entry points run
-    tick by tick (``pipeline.software_pipeline``, or
-    ``staggered_pipeline`` for a stagger of 1 or more): one
-    ``repair_tick`` a tick, looked up on this module at each tick, over
-    fresh zeroed wires."""
-    fn = _route(shards, _repair_chain_cuda, _repair_chain_ticks)
-    fn(shards, shard_rows, out, tables, l, num_chunks, stagger)
+    zero sums; shapes as ``kernel.repair_chain``'s. On the card, one launch
+    of it in one ``repro_torch.tick`` span, which takes no schedule. On the
+    CPU, the ticks of the chain's ``num_chunks`` and ``stagger``
+    (``pipeline.run_chain``): one ``repair_tick`` a tick, looked up on this
+    module at each tick, over fresh zeroed wires."""
+    ticks = functools.partial(_repair_chain_ticks, num_chunks=num_chunks, stagger=stagger)
+    _route(shards, _repair_chain_cuda, ticks)(shards, shard_rows, out, tables, l)
 
 
-def _repair_chain_cuda(shards, shard_rows, out, tables, l: int, num_chunks: int,
-                       stagger: int) -> None:
-    del num_chunks, stagger        # one launch runs every chunk of every object
+def _repair_chain_cuda(shards, shard_rows, out, tables, l: int) -> None:
     with trace.span("repro_torch.tick"):
         kernel.repair_chain(shards, shard_rows, out, tables, l)
 
@@ -144,12 +131,8 @@ def _repair_chain_ticks(shards, shard_rows, out, tables, l: int, num_chunks: int
     def step(wire_in, wire_out, t, lo, count):
         repair_tick(wire_in, wire_out, shards, shard_rows, out, tables, l, t, num_chunks, lo,
                     count, head_zero=True, **staggered)
-    if stagger:
-        pipeline.staggered_pipeline(step, h, num_chunks, (rows, Bp // num_chunks),
-                                    num_objects=n_obj, stagger=stagger, device=shards.device)
-    else:
-        pipeline.software_pipeline(step, h, num_chunks, (h, n_obj, rows, Bp // num_chunks),
-                                   device=shards.device)
+    pipeline.run_chain(step, h, num_chunks, (rows, Bp // num_chunks), num_objects=n_obj,
+                       stagger=stagger, device=shards.device)
 
 
 def chain_step(x_in: torch.Tensor, local: torch.Tensor, bp_psi: torch.Tensor,

@@ -19,7 +19,7 @@ where the ticks run the kernels' plain PyTorch versions. Asking for a CUDA
 device on a machine without one raises.
 
 Warm fast path: each entry point runs one cached program per (code,
-survivor set, stripe width, num_chunks, device) key
+survivor set, stripe width, schedule, device) key
 (``repro_torch.core.jitcache``): the product tables cross to the device
 once, when the program is built, not on every call. ``superchunk_words``
 streams an object held on the host through the card in independent stripes
@@ -29,10 +29,15 @@ their own, and ``sink(s, words)`` takes each stripe's result instead of a
 whole-object output. The single-stripe plan is the monolithic call, which
 reads its input in place with no graph.
 
-``num_chunks=None`` resolves through the tuner
-(``repro_torch.core.autotune.num_chunks_for``): a cached value for the
-entry point and geometry, else the calibrated model's choice where a chain
-calibration is cached, else the hand-tuned ``DEFAULT_NUM_CHUNKS``.
+Every entry point resolves its call through one ``call_plan``: device,
+placement, stripes and the schedule (``num_chunks``, and a batch's
+``stagger``). Only ticks read the schedule, so only where ticks run (the
+CPU, placed chains, card layouts) does ``num_chunks=None`` resolve through
+the tuner (``repro_torch.core.autotune.num_chunks_for``: a cached value
+for the entry point and geometry, else the calibrated model's choice where
+a chain calibration is cached, else the hand-tuned ``DEFAULT_NUM_CHUNKS``)
+and the schedule key the program. An unplaced call on the card reaches no
+tuner, and its program holds no schedule.
 
 Placement (the JAX package's chain mesh): ``mesh=`` (a ``DeviceMesh`` of n
 devices, ``make_chain_mesh``) or ``order=`` (the scheduler's placement:
@@ -76,6 +81,7 @@ from repro_torch.kernels.gf_encode import kernel, ops
 from repro_torch.launch import mesh as mesh_lib
 
 DEFAULT_NUM_CHUNKS = autotune.DEFAULT_NUM_CHUNKS
+DEFAULT_STAGGER = 1
 AXIS = "chain"
 
 
@@ -213,13 +219,13 @@ class CardLayout:
         return ("cards",) + self.cards
 
 
-def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch.device,
-                 placement, drive, layout: CardLayout | None = None):
-    """The tick loop of an encode program, ``ticks(src, out_nodes, wires)``
+def encode_ticks(code: ErasureCode, plan: CallPlan, drive, layout: CardLayout | None = None):
+    """The tick loop of a call plan's encode, ``ticks(src, out_nodes, wires)``
     over ``src`` (B_obj, k, Bp) and ``out_nodes`` (n, B_obj, Bp). Unplaced:
     the whole chain in one ``ops.encode_chain``, which takes no wires (on
-    the card one launch, the running combination kept in registers; on the
-    CPU the ticks of its schedule), over the ``kernel.EncodePlan`` made here
+    the card one launch, which reads no schedule, the running combination
+    kept in registers; on the CPU the ticks of its schedule), over the
+    ``kernel.EncodePlan`` made here
     once, as the tables are. Placed: ``drive(step, wires)`` runs one
     ``chain_tick`` launch a position a tick through the pipeline driver,
     each reading its own replica blocks and writing its codeword rows. Over
@@ -228,7 +234,7 @@ def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch
     and each card's launch at a tick runs over its active nodes at tick t
     minus its first position, on its own slots and tables: placed chains
     and layouts need a wire that crosses devices, the unplaced chain none."""
-    l = code.l
+    l, num_chunks, stagger, device = code.l, plan.num_chunks, plan.stagger, plan.device
     if layout is not None:
         m = layout.groups[0].count
         cards = [(g.first, layout.slots[c],
@@ -245,13 +251,13 @@ def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch
         return card_ticks
     slots = placement_slots(code)
     tables = device_tables(product_tables(code), device)
-    if placement is None:
-        plan = kernel.EncodePlan(slots, code.k, device)
+    if plan.placement is None:
+        walk = kernel.EncodePlan(slots, code.k, device)
 
         def ticks(src, out_nodes, wires):
-            ops.encode_chain(src, plan, out_nodes, tables, l, num_chunks, stagger)
+            ops.encode_chain(src, walk, out_nodes, tables, l, num_chunks, stagger)
         return ticks
-    pos = positions(placement, device, slots, tables)
+    pos = positions(plan.placement, device, slots, tables)
 
     def placed_ticks(src, out_nodes, wires):
         srcs = [held(src, q, 1) for q in pos]
@@ -269,22 +275,23 @@ def encode_ticks(code: ErasureCode, num_chunks: int, stagger: int, device: torch
     return placed_ticks
 
 
-def sums_ticks(l: int, rows_table: np.ndarray, tables: torch.Tensor, num_chunks: int,
-               stagger: int, device: torch.device, placement, drive):
-    """The tick loop of a decode or repair program, ``ticks(shards, out,
+def sums_ticks(l: int, rows_table: np.ndarray, tables: torch.Tensor, plan: CallPlan, drive):
+    """The tick loop of a call plan's decode or repair, ``ticks(shards, out,
     wires)`` over ``shards`` (R, B_obj, Bp) and ``out`` (B_obj, rows, Bp):
     chain position p reads shard ``rows_table[p]`` and applies
     ``tables[p]``; the last position writes ``out``; position 0 starts from
     zero sums. Unplaced: the whole chain in one ``ops.repair_chain``, which
-    takes no wires (on the card one launch, the sums kept in registers; on
-    the CPU the ticks of its schedule). Placed: ``drive`` runs one
+    takes no wires (on the card one launch, which reads no schedule, the
+    sums kept in registers; on the CPU the ticks of its schedule). Placed:
+    ``drive`` runs one
     ``repair_tick`` launch a position a tick, every position but the last
     forwarding its sums (``last_forwards``)."""
-    if placement is None:
+    num_chunks, stagger = plan.num_chunks, plan.stagger
+    if plan.placement is None:
         def ticks(shards, out, wires):
             ops.repair_chain(shards, rows_table, out, tables, l, num_chunks, stagger)
         return ticks
-    pos = positions(placement, device, rows_table, tables)
+    pos = positions(plan.placement, plan.device, rows_table, tables)
     h = len(pos)
 
     def placed_ticks(shards, out, wires):
@@ -371,19 +378,12 @@ def build_local_blocks(code: ErasureCode, data: np.ndarray) -> np.ndarray:
     return np.where(valid[:, :, None], data[idx], 0).astype(data.dtype)
 
 
-def _chunks(num_chunks: int, what: str) -> int:
-    """The chunk count, checked >= 1 (the entry points resolve None through
-    ``autotune.num_chunks_for`` first)."""
+def _check_chunking(B: int, l: int, num_chunks: int, what: str) -> None:
+    """Raises unless a block of B words cuts into ``num_chunks`` chunks of
+    whole uint32 lanes."""
+    lanes = gf.LANES[l]
     if num_chunks < 1:
         raise ValueError(f"{what}: num_chunks must be >= 1, got {num_chunks}")
-    return num_chunks
-
-
-def _check_chunking(B: int, l: int, num_chunks: int, what: str) -> int:
-    """The chunk count, checked to cut a block of B words into chunks of
-    whole uint32 lanes."""
-    num_chunks = _chunks(num_chunks, what)
-    lanes = gf.LANES[l]
     if B % (lanes * num_chunks):
         if num_chunks == 1:
             raise ValueError(
@@ -392,30 +392,106 @@ def _check_chunking(B: int, l: int, num_chunks: int, what: str) -> int:
         raise ValueError(
             f"{what}: block length {B} must divide into {num_chunks} chunks "
             f"of whole uint32 lanes ({lanes} GF(2^{l}) words each)")
-    return num_chunks
 
 
-def stream_plan(total_words: int, superchunk_words: int | None, l: int,
-                num_chunks: int, what: str) -> tuple[streaming.StreamPlan, int]:
-    """(the stripe plan, the chunk count) of a pipelined call, the stripe
-    width checked to cut into whole-lane chunks."""
-    num_chunks = _chunks(num_chunks, what)
-    plan = streaming.plan_stream(total_words, superchunk_words, l=l, num_chunks=num_chunks)
-    _check_chunking(plan.sc_words, l, num_chunks, what)
-    return plan, num_chunks
+class CallPlan(NamedTuple):
+    """What a pipelined call resolves to (``call_plan``). ``placement``:
+    each chain position's device, None unplaced; ``mesh``: the mesh or card
+    layout key; ``B_obj`` None: one object. The schedule, ``num_chunks``
+    and ``stagger`` (0: lockstep), is None and None on an unplaced card
+    call, whose one launch reads none."""
+    device: torch.device
+    placement: tuple | None
+    mesh: object
+    stream: streaming.StreamPlan
+    B_obj: int | None
+    num_chunks: int | None
+    stagger: int | None
+    key: tuple
 
 
-def run_program(key, build, x: torch.Tensor, plan: streaming.StreamPlan, sink,
-                device: torch.device):
-    """The cached program of ``key`` (built by ``build`` on a miss) over
-    ``x``: in place on ``device`` for the single-stripe plan, else stripe
-    by stripe from the host (a CUDA ``x`` is brought to the host first, as
-    the JAX package's streaming takes host arrays)."""
+def call_plan(code: ErasureCode, what: str, entry: str, total_words: int, num_chunks,
+              stagger=None, *, chain_len: int, sets: tuple = (), B_obj: int | None = None,
+              device=None, superchunk_words: int | None = None, mesh=None, order=None,
+              layout: CardLayout | None = None, reverse: bool = False) -> CallPlan:
+    """The plan of a pipelined call (``what`` in errors; ``entry`` its tuner
+    entry and program key) over blocks of ``total_words`` words, along a
+    chain of ``chain_len`` positions (placed in ``reverse`` for a repair),
+    for one object (``B_obj`` None, lockstep) or a batch (``stagger`` >=
+    1). ``sets`` (survivors, missing rows) join the program's key.
+
+    The one place that decides where ticks run: on the CPU, placed (``mesh``
+    / ``order``) or over a card ``layout``. Only there does a None
+    ``num_chunks`` or ``stagger`` resolve through the tuner
+    (``autotune.num_chunks_for`` / ``stagger_for``) and the schedule join
+    the key. An unplaced call on the card reaches no tuner and its key holds
+    no schedule. An explicit ``num_chunks`` is checked and sets the stripe
+    granule everywhere; None on the card takes ``DEFAULT_NUM_CHUNKS``'s."""
+    if layout is not None:
+        dev, placement, mesh = layout.cards[0], None, layout.key
+    else:
+        dev, placement, mesh = resolve_placement(chain_len, mesh, order, device, what, reverse)
+    ticks = dev.type == "cpu" or placement is not None or layout is not None
+    batch = () if B_obj is None else (B_obj,)
+    if ticks and num_chunks is None:
+        num_chunks = autotune.num_chunks_for(entry, code, total_words, chain_len=chain_len,
+                                             extra_key=batch, device=dev)
+    granule = DEFAULT_NUM_CHUNKS if num_chunks is None else num_chunks
+    if granule < 1:
+        raise ValueError(f"{what}: num_chunks must be >= 1, got {num_chunks}")
+    stream = streaming.plan_stream(total_words, superchunk_words, l=code.l, num_chunks=granule)
+    _check_chunking(stream.sc_words, code.l, num_chunks or 1, what)
+    if B_obj is None:
+        stagger = 0
+    elif stagger is not None and stagger < 1:
+        raise ValueError(f"{what}: stagger must be >= 1, got {stagger}")
+    elif ticks and stagger is None:
+        stagger = autotune.stagger_for(code, B_obj, num_chunks, default=DEFAULT_STAGGER,
+                                       device=dev)
+    schedule = (num_chunks, int(stagger))[:1 + len(batch)] if ticks else ()
+    key = (entry, code.cache_key, *sets, mesh, *batch, stream.sc_words, *schedule, dev)
+    if not ticks:
+        return CallPlan(dev, placement, mesh, stream, B_obj, None, None, key)
+    return CallPlan(dev, placement, mesh, stream, B_obj, num_chunks, int(stagger), key)
+
+
+def run_program(plan: CallPlan, build, x: torch.Tensor, sink):
+    """The cached program of ``plan.key`` (built by ``build`` on a miss)
+    over ``x``: in place on the plan's device for the single-stripe plan,
+    else stripe by stripe from the host (a CUDA ``x`` is brought to the
+    host first, as the JAX package's streaming takes host arrays)."""
     with trace.span("repro_torch.lookup"):
-        program = jitcache.get(key, build)
-    if not plan.streaming:
-        x = x.to(device)
-    return streaming.run_words(program, x, plan, sink=sink)
+        program = jitcache.get(plan.key, build)
+    if not plan.stream.streaming:
+        x = x.to(plan.device)
+    return streaming.run_words(program, x, plan.stream, sink=sink)
+
+
+def _drive(n: int, rows: tuple, l: int, plan: CallPlan, layout: CardLayout | None = None):
+    """(``drive(step, wires)``, the program's wire shape) of a placed or
+    grouped run over n positions (``pipeline.run_chain``), a wire slot
+    carrying ``rows`` (a sums chain's; an encode's none) chunks of S lanes;
+    (None, None) unplaced, where the ticks keep no wires."""
+    if plan.placement is None and layout is None:
+        return None, None
+    nc, objs = plan.num_chunks, plan.B_obj or 1
+    slot = rows + (plan.stream.sc_words // gf.LANES[l] // nc,)
+
+    def drive(step, wires):
+        pipeline.run_chain(step, n, nc, slot, num_objects=objs, stagger=plan.stagger,
+                           device=plan.device, wires=wires, placement=plan.placement,
+                           groups=None if layout is None else layout.groups)
+    return drive, pipeline.chain_wire_shape(n, nc, slot, objs, plan.stagger)
+
+
+def _program(plan: CallPlan, l: int, in_rows: int, out_rows: int, wire_shape,
+             ticks) -> streaming.Program:
+    """The ``streaming.Program`` of a plan: (in_rows, sc_words) ->
+    (out_rows, sc_words) words, each with a leading B_obj for a batch."""
+    lead = () if plan.B_obj is None else (plan.B_obj,)
+    return streaming.Program(device=plan.device, l=l, sc_words=plan.stream.sc_words,
+                             in_lead=lead + (in_rows,), out_lead=lead + (out_rows,),
+                             wire_shape=wire_shape, ticks=ticks, placement=plan.placement)
 
 
 def device_tables(tables: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -424,12 +500,16 @@ def device_tables(tables: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tables.view(np.int32).copy()).to(device)
 
 
-def _words(x, l: int, rows: int, what: str, device: torch.device | None = None) -> torch.Tensor:
-    """(rows, B) GF(2^l) words as a tensor on ``device`` (None: where it lies,
-    the host for a numpy array)."""
+def _words(x, l: int, rows: int, what: str, device: torch.device | None = None,
+           batch: tuple[str, str] | None = None) -> torch.Tensor:
+    """(rows, B) GF(2^l) words, or with ``batch`` (its name, its rows' name)
+    a (B_obj, rows, B) batch, as a tensor on ``device`` (None: where it
+    lies, the host for a numpy array)."""
     x = torch.as_tensor(x, device=device)
-    if x.dim() != 2 or x.shape[0] != rows:
-        raise ValueError(f"{what}: words {tuple(x.shape)} must be ({rows}, B)")
+    if x.dim() != 2 + (batch is not None) or x.shape[-2] != rows:
+        raise ValueError(f"{what}: words {tuple(x.shape)} must be ({rows}, B)" if batch is None
+                         else f"{what}: {batch[0]} {tuple(x.shape)} must be "
+                         f"(B_obj, {batch[1]}={rows}, B)")
     if x.dtype != gf.TORCH_WORD_DTYPE[l]:
         raise ValueError(f"{what}: words must be {gf.TORCH_WORD_DTYPE[l]} for "
                          f"GF(2^{l}), got {x.dtype}")
@@ -447,29 +527,30 @@ def encode_operands(code: ErasureCode, data_packed: torch.Tensor):
             device_tables(product_tables(code), data_packed.device))
 
 
-def _build_encode(code: ErasureCode, sc_words: int, num_chunks: int,
-                  device: torch.device, placement=None) -> streaming.Program:
-    """The encode program of one stripe geometry: (k, sc_words) words ->
-    (n, sc_words). Each node's replica blocks are read in place through the
-    slot table and its codeword row written straight into the (n, Bp)
-    output. Unplaced it keeps no wires (``encode_ticks``: one
-    ``encode_chain``); placed, one launch a position a tick over wires of n
-    rows (the last node's forward is never read)."""
-    n = code.n
-    S = sc_words // gf.LANES[code.l] // num_chunks
-
-    def drive(step, wires):
-        pipeline.software_pipeline(step, n, num_chunks, (n, 1, S), device=device,
-                                   wires=wires, placement=placement)
-    run = encode_ticks(code, num_chunks, 0, device, placement, drive)
+def build_encode(code: ErasureCode, plan: CallPlan, layout: CardLayout | None = None):
+    """The encode program of a call plan: (k, sc_words) words -> (n,
+    sc_words), each with a leading B_obj for a batch, every node reading
+    its replica blocks in place and writing its codeword row straight into
+    the output (``encode_ticks``). Unplaced it keeps no wires; placed, n
+    rows (the last node's forward is never read). Over a card ``layout``, a
+    ``streaming.CardProgram``: card c's (B_obj, len(layout.blocks[c]),
+    sc_words) -> its (B_obj, positions, sc_words)."""
+    drive, wire_shape = _drive(code.n, (), code.l, plan, layout)
+    run = encode_ticks(code, plan, drive, layout)
+    if layout is not None:
+        def card_ticks(srcs, outs, wires):
+            run(srcs, [out.transpose(0, 1) for out in outs], wires)   # (positions, B_obj, Bp)
+        return streaming.CardProgram(
+            cards=layout.cards, l=code.l, sc_words=plan.stream.sc_words, ticks=card_ticks,
+            in_leads=[(plan.B_obj, len(b)) for b in layout.blocks],
+            out_leads=[(plan.B_obj, g.count) for g in layout.groups])
 
     def ticks(src, out, wires):
-        run(src[None], out[:, None], wires)      # (1, k, Bp), (n, 1, Bp): views
-
-    wire_shape = None if placement is None else (n, 1, S)
-    return streaming.Program(device=device, l=code.l, sc_words=sc_words, in_lead=(code.k,),
-                             out_lead=(n,), wire_shape=wire_shape, ticks=ticks,
-                             placement=placement)
+        if plan.B_obj is None:
+            run(src[None], out[:, None], wires)      # (1, k, Bp), (n, 1, Bp): views
+        else:
+            run(src, out.transpose(0, 1), wires)     # out as (n, B_obj, Bp), a view
+    return _program(plan, code.l, code.k, code.n, wire_shape, ticks)
 
 
 @trace.root("encode")
@@ -482,8 +563,9 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
     (GF(2^16)) words; the result is a tensor of words on ``device``. On the
     card the whole chain is one ``encode_chain`` launch, reading the
     replica blocks in place and carrying the running combination in
-    registers; on the CPU, and placed, one ``chain_tick`` a tick over the
-    active nodes. ``num_chunks=None`` is tuned (``autotune.num_chunks_for``).
+    registers, whatever ``num_chunks``; on the CPU, and placed, one
+    ``chain_tick`` a tick over the active nodes, ``num_chunks=None`` tuned
+    (``call_plan``).
 
     ``superchunk_words`` streams a host-resident object through the card
     as independent stripes of that many words a block, each one replay of
@@ -503,16 +585,11 @@ def pipelined_encode(code: ErasureCode, data, num_chunks: int | None = None,
             raise ValueError(
                 f"pipelined_encode: {code.family} has no chain schedule — "
                 f"use code.encode_np")
-        dev, placement, mesh = resolve_placement(code.n, mesh, order, device,
-                                                 "pipelined_encode")
         data = _words(data, code.l, code.k, "pipelined_encode")
-        if num_chunks is None:   # tuned (or hand-tuned default) chunk count
-            num_chunks = autotune.num_chunks_for("encode", code, data.shape[1], device=dev)
-        plan, num_chunks = stream_plan(data.shape[1], superchunk_words, code.l, num_chunks,
-                                       "pipelined_encode")
-    return run_program(("encode", code.cache_key, mesh, plan.sc_words, num_chunks, dev),
-                       lambda: _build_encode(code, plan.sc_words, num_chunks, dev, placement),
-                       data, plan, sink, dev)
+        plan = call_plan(code, "pipelined_encode", "encode", data.shape[1], num_chunks,
+                         chain_len=code.n, device=device, superchunk_words=superchunk_words,
+                         mesh=mesh, order=order)
+    return run_program(plan, lambda: build_encode(code, plan), data, sink)
 
 
 def encode_program(code: ErasureCode, sc_words: int, num_chunks: int = DEFAULT_NUM_CHUNKS,
@@ -525,10 +602,9 @@ def encode_program(code: ErasureCode, sc_words: int, num_chunks: int = DEFAULT_N
     ``mesh`` / ``order`` as in ``pipelined_encode``."""
     if not code.supports_chain_encode:
         raise ValueError(f"encode_program: {code.family} has no chain schedule")
-    dev, placement, mesh = resolve_placement(code.n, mesh, order, device, "encode_program")
-    num_chunks = _check_chunking(sc_words, code.l, num_chunks, "encode_program")
-    return jitcache.get(("encode", code.cache_key, mesh, sc_words, num_chunks, dev),
-                        lambda: _build_encode(code, sc_words, num_chunks, dev, placement))
+    plan = call_plan(code, "encode_program", "encode", sc_words, num_chunks, chain_len=code.n,
+                     device=device, mesh=mesh, order=order)
+    return jitcache.get(plan.key, lambda: build_encode(code, plan))
 
 
 @functools.lru_cache(maxsize=256)
@@ -567,29 +643,29 @@ def decode_operands(code: ErasureCode, ids, device: torch.device) -> torch.Tenso
     return device_tables(decode_tables(code, tuple(int(i) for i in ids)), device)
 
 
-def _build_decode(code: ErasureCode, ids: tuple[int, ...], sc_words: int,
-                  num_chunks: int, device: torch.device, placement=None) -> streaming.Program:
-    """The decode program of one survivor set and stripe geometry:
-    (len(ids), sc_words) shards -> (k, sc_words) words. Node i reads shard
-    i in place; only the last node's sums are kept, written straight into
-    the output; node 0 starts from zero sums. Unplaced it keeps no wires;
-    placed, one launch a position (``sums_ticks``)."""
-    l, k, n_alive = code.l, code.k, len(ids)
-    S = sc_words // gf.LANES[l] // num_chunks
-
-    def drive(step, wires):
-        pipeline.software_pipeline(step, n_alive, num_chunks, (n_alive, 1, k, S),
-                                   device=device, wires=wires, placement=placement)
-    run = sums_ticks(l, identity_rows(n_alive), device_tables(decode_tables(code, ids), device),
-                     num_chunks, 0, device, placement, drive)
+def build_sums(l: int, rows_table: np.ndarray, tables: torch.Tensor, in_rows: int,
+               out_rows: int, plan: CallPlan) -> streaming.Program:
+    """The decode or repair program of a call plan: (in_rows, sc_words)
+    shards -> (out_rows, sc_words) words, each with a leading B_obj for a
+    batch, chain position p reading shard ``rows_table[p]`` in place and
+    applying ``tables[p]`` (``sums_ticks``). Unplaced it keeps no wires;
+    placed, one launch a position."""
+    drive, wire_shape = _drive(len(rows_table), (out_rows,), l, plan)
+    run = sums_ticks(l, rows_table, tables, plan, drive)
 
     def ticks(src, out, wires):
-        run(src[:, None], out[None], wires)      # (n_alive, 1, Bp), (1, k, Bp): views
+        if plan.B_obj is None:
+            run(src[:, None], out[None], wires)  # (in_rows, 1, Bp), (1, out_rows, Bp): views
+        else:
+            run(src.transpose(0, 1), out, wires)     # (in_rows, B_obj, Bp), a view
+    return _program(plan, l, in_rows, out_rows, wire_shape, ticks)
 
-    wire_shape = None if placement is None else (n_alive, 1, k, S)
-    return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(n_alive,),
-                             out_lead=(k,), wire_shape=wire_shape, ticks=ticks,
-                             placement=placement)
+
+def build_decode(code: ErasureCode, ids: tuple[int, ...], plan: CallPlan) -> streaming.Program:
+    """``build_sums`` of a decode: node i reads survivor i's shard and
+    applies its column of the decode matrix; the k rows are the object."""
+    return build_sums(code.l, identity_rows(len(ids)), decode_operands(code, ids, plan.device),
+                      len(ids), code.k, plan)
 
 
 @trace.root("decode")
@@ -606,8 +682,7 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
     whole chain is one ``repair_chain`` launch, the sums carried in
     registers; on the CPU, one repair tick a tick. ``shards`` (len(ids),
     B) words as a numpy array or tensor; returns the (k, B) object as a
-    tensor of words on ``device``.
-    ``num_chunks=None`` is tuned (``autotune.num_chunks_for``).
+    tensor of words on ``device``. ``num_chunks`` as in ``pipelined_encode``.
     ``superchunk_words`` / ``sink`` stream the decode as in
     ``pipelined_encode``: decode applies D per word, so the stripes
     concatenate to the monolithic result. ``mesh`` (len(ids) devices)
@@ -620,18 +695,11 @@ def pipelined_decode(code: ErasureCode, ids, shards, num_chunks: int | None = No
                 f"pipelined_decode: {code.family} shards are sub-packetized — "
                 f"use code.decode_np")
         ids = tuple(int(i) for i in ids)
-        dev, placement, mesh = resolve_placement(len(ids), mesh, None, device,
-                                                 "pipelined_decode")
         shards = _words(shards, code.l, len(ids), "pipelined_decode")
-        if num_chunks is None:
-            num_chunks = autotune.num_chunks_for("decode", code, shards.shape[1],
-                                                 chain_len=len(ids), device=dev)
-        plan, num_chunks = stream_plan(shards.shape[1], superchunk_words, code.l,
-                                       num_chunks, "pipelined_decode")
-    return run_program(("decode", code.cache_key, ids, mesh, plan.sc_words, num_chunks, dev),
-                       lambda: _build_decode(code, ids, plan.sc_words, num_chunks, dev,
-                                             placement),
-                       shards, plan, sink, dev)
+        plan = call_plan(code, "pipelined_decode", "decode", shards.shape[1], num_chunks,
+                         chain_len=len(ids), sets=(ids,), device=device,
+                         superchunk_words=superchunk_words, mesh=mesh)
+    return run_program(plan, lambda: build_decode(code, ids, plan), shards, sink)
 
 
 def decode_program(code: ErasureCode, ids, sc_words: int,
@@ -644,11 +712,9 @@ def decode_program(code: ErasureCode, ids, sc_words: int,
     if not code.positionwise:
         raise ValueError(f"decode_program: {code.family} shards are sub-packetized")
     ids = tuple(int(i) for i in ids)
-    dev, placement, mesh = resolve_placement(len(ids), mesh, None, device,
-                                             "decode_program")
-    num_chunks = _check_chunking(sc_words, code.l, num_chunks, "decode_program")
-    return jitcache.get(("decode", code.cache_key, ids, mesh, sc_words, num_chunks, dev),
-                        lambda: _build_decode(code, ids, sc_words, num_chunks, dev, placement))
+    plan = call_plan(code, "decode_program", "decode", sc_words, num_chunks,
+                     chain_len=len(ids), sets=(ids,), device=device, mesh=mesh)
+    return jitcache.get(plan.key, lambda: build_decode(code, ids, plan))
 
 
 def order_chain(node_speeds: np.ndarray, n: int, k: int) -> np.ndarray:

@@ -29,13 +29,17 @@ gathered. The operands are the single-object paths' cached ones
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where the ticks run the kernels' plain PyTorch versions. Each runs one
-cached program per (code, survivor set, batch, stripe width, num_chunks,
-stagger, device) key, and ``superchunk_words`` / ``sink`` stream a
-host-resident batch stripe by stripe, as in ``storage.chain``.
+cached program per (code, survivor set, batch, stripe width, schedule,
+device) key, and ``superchunk_words`` / ``sink`` stream a host-resident
+batch stripe by stripe, as in ``storage.chain``.
 
-``num_chunks=None`` and ``stagger=None`` resolve through the tuner
+Where ticks run (the CPU, placed chains, card layouts), ``num_chunks=None``
+and ``stagger=None`` resolve through the tuner
 (``repro_torch.core.autotune.num_chunks_for`` / ``stagger_for``), whose
-hand-tuned defaults are ``chain.DEFAULT_NUM_CHUNKS`` and a stagger of 1.
+hand-tuned defaults are ``chain.DEFAULT_NUM_CHUNKS`` and
+``chain.DEFAULT_STAGGER``, and key the program (``chain.call_plan``). The
+card's one launch reads neither: an unplaced call there reaches no tuner,
+and its program holds no schedule.
 
 ``mesh=`` / ``order=`` on ``pipelined_encode_many`` and ``mesh=`` on
 ``pipelined_decode_many`` place the chain positions on devices, as in
@@ -57,39 +61,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import autotune, gf, jitcache, pipeline, streaming, trace
+from repro_torch.core import jitcache, trace
 from repro_torch.core.codes import ErasureCode
-from repro_torch.storage.chain import (CardLayout, decode_tables, device_tables,
-                                       encode_ticks, identity_rows, resolve_placement,
-                                       run_program, stream_plan, sums_ticks)
-
-DEFAULT_STAGGER = 1
-
-
-def tuned_stagger(code: ErasureCode, B_obj: int, num_chunks: int, stagger: int | None,
-                  device: torch.device, what: str) -> int:
-    """The stagger: ``autotune.stagger_for`` for None (``DEFAULT_STAGGER``
-    until a cache says otherwise), else ``stagger`` checked to be >= 1."""
-    if stagger is None:
-        return autotune.stagger_for(code, B_obj, num_chunks, default=DEFAULT_STAGGER,
-                                    device=device)
-    if stagger < 1:
-        raise ValueError(f"{what}: stagger must be >= 1, got {stagger}")
-    return int(stagger)
-
-
-def batch_words(x, l: int, rows: int, what: str, name: str, rows_name: str,
-                device: torch.device | None = None) -> torch.Tensor:
-    """A (B_obj, rows, B) batch of GF(2^l) words as a tensor on ``device``
-    (None: where it lies, the host for a numpy array)."""
-    x = torch.as_tensor(x, device=device)
-    if x.dim() != 3 or x.shape[1] != rows:
-        raise ValueError(f"{what}: {name} {tuple(x.shape)} must be "
-                         f"(B_obj, {rows_name}={rows}, B)")
-    if x.dtype != gf.TORCH_WORD_DTYPE[l]:
-        raise ValueError(f"{what}: words must be {gf.TORCH_WORD_DTYPE[l]} for "
-                         f"GF(2^{l}), got {x.dtype}")
-    return x
+from repro_torch.storage.chain import (CardLayout, _words, build_decode, build_encode,
+                                       call_plan, run_program)
 
 
 def resident_batch(layout: CardLayout, objects, l: int, what: str) -> list[torch.Tensor]:
@@ -100,51 +75,13 @@ def resident_batch(layout: CardLayout, objects, l: int, what: str) -> list[torch
                          f"be a list of one tensor a card")
     out = []
     for c, (x, d) in enumerate(zip(objects, layout.cards)):
-        x = batch_words(x, l, len(layout.blocks[c]), what, f"card {c}'s blocks",
-                        f"len(layout.blocks[{c}])")
+        x = _words(x, l, len(layout.blocks[c]), what,
+                   batch=(f"card {c}'s blocks", f"len(layout.blocks[{c}])"))
         if x.device != d or (out and x.shape[::2] != out[0].shape[::2]):
             raise ValueError(f"{what}: card {c}'s blocks {tuple(x.shape)} on {x.device}, "
                              f"want (B_obj, {len(layout.blocks[c])}, B) on {d}")
         out.append(x)
     return out
-
-
-def _build_encode_many(code: ErasureCode, B_obj: int, sc_words: int, num_chunks: int,
-                       stagger: int, device: torch.device, placement=None,
-                       layout: CardLayout | None = None):
-    """The staggered encode program: (B_obj, k, sc_words) -> (B_obj, n,
-    sc_words) words. Every (node, object) reads its replica blocks in place
-    and writes its codeword row into object b's row of the output. Unplaced
-    it keeps no wires (``chain.encode_ticks``: one ``encode_chain``);
-    placed, one launch a position a tick, each forwarding its wire in slot
-    b % W. Over a card ``layout``, a ``streaming.CardProgram``: card c's
-    (B_obj, len(layout.blocks[c]), sc_words) -> its (B_obj, positions,
-    sc_words), one launch a card a tick."""
-    n = code.n
-    S = sc_words // gf.LANES[code.l] // num_chunks
-    W = pipeline.window_size(num_chunks, B_obj, stagger)
-
-    def drive(step, wires):
-        pipeline.staggered_pipeline(step, n, num_chunks, (S,), num_objects=B_obj,
-                                    stagger=stagger, device=device, wires=wires,
-                                    placement=placement,
-                                    groups=None if layout is None else layout.groups)
-    run = encode_ticks(code, num_chunks, stagger, device, placement, drive, layout)
-    if layout is not None:
-        def card_ticks(srcs, outs, wires):
-            run(srcs, [out.transpose(0, 1) for out in outs], wires)   # (positions, B_obj, Bp)
-        return streaming.CardProgram(
-            cards=layout.cards, l=code.l, sc_words=sc_words, ticks=card_ticks,
-            in_leads=[(B_obj, len(b)) for b in layout.blocks],
-            out_leads=[(B_obj, g.count) for g in layout.groups])
-
-    def ticks(src, out, wires):
-        run(src, out.transpose(0, 1), wires)        # out as (n, B_obj, Bp), a view
-
-    wire_shape = None if placement is None else (n, W, S)
-    return streaming.Program(device=device, l=code.l, sc_words=sc_words,
-                             in_lead=(B_obj, code.k), out_lead=(B_obj, n),
-                             wire_shape=wire_shape, ticks=ticks, placement=placement)
 
 
 @trace.root("encode_many")
@@ -161,8 +98,8 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
     run's span: every (node, object) with a chunk at that tick reads its
     replica blocks in place through the slot table, writes its codeword
     chunk straight into object b's row of the output, and forwards its wire
-    in slot b % W. ``num_chunks=None`` and ``stagger=None`` are tuned
-    (``autotune``). ``superchunk_words`` streams the whole batch
+    in slot b % W, ``num_chunks=None`` and ``stagger=None`` tuned
+    (``chain.call_plan``). ``superchunk_words`` streams the whole batch
     stripe by stripe, each stripe one staggered run of the same cached
     program, and ``sink(s, (B_obj, n, W) words)`` takes each stripe's
     result instead of an assembled batch. ``mesh`` / ``order`` place the
@@ -191,53 +128,20 @@ def pipelined_encode_many(code: ErasureCode, objects, num_chunks: int | None = N
             if layout.code_key != code.cache_key:
                 raise ValueError(f"{what}: the layout was made for another code")
             objects = resident_batch(layout, objects, code.l, what)
-            dev, placement, mesh = layout.cards[0], None, layout.key
             B_obj, B = objects[0].shape[0], objects[0].shape[2]
         else:
-            dev, placement, mesh = resolve_placement(code.n, mesh, order, device, what)
-            objects = batch_words(objects, code.l, code.k, what, "objects", "k")
+            objects = _words(objects, code.l, code.k, what, batch=("objects", "k"))
             B_obj, _, B = objects.shape
-        if num_chunks is None:
-            num_chunks = autotune.num_chunks_for("encode_many", code, B, extra_key=(B_obj,),
-                                                 device=dev)
-        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
-        stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
-    key = ("encode_many", code.cache_key, mesh, B_obj, plan.sc_words, num_chunks, stagger, dev)
+        plan = call_plan(code, what, "encode_many", B, num_chunks, stagger, chain_len=code.n,
+                         B_obj=B_obj, device=device, superchunk_words=superchunk_words,
+                         mesh=mesh, order=order, layout=layout)
 
     def build():
-        return _build_encode_many(code, B_obj, plan.sc_words, num_chunks, stagger, dev,
-                                  placement, layout)
+        return build_encode(code, plan, layout)
     if layout is not None:      # resident on its cards: no stripes, nothing moved
         with trace.span("repro_torch.lookup"):
-            return jitcache.get(key, build)(objects)
-    return run_program(key, build, objects, plan, sink, dev)
-
-
-def _build_decode_many(code: ErasureCode, ids: tuple[int, ...], B_obj: int,
-                       sc_words: int, num_chunks: int, stagger: int,
-                       device: torch.device, placement=None) -> streaming.Program:
-    """The staggered decode program: (B_obj, len(ids), sc_words) shards ->
-    (B_obj, k, sc_words) words, every shard read in place (node i reads
-    shard i). Unplaced it keeps no wires; placed, one launch a position
-    (``chain.sums_ticks``)."""
-    l, k, n_alive = code.l, code.k, len(ids)
-    S = sc_words // gf.LANES[l] // num_chunks
-    W = pipeline.window_size(num_chunks, B_obj, stagger)
-
-    def drive(step, wires):
-        pipeline.staggered_pipeline(step, n_alive, num_chunks, (k, S), num_objects=B_obj,
-                                    stagger=stagger, device=device, wires=wires,
-                                    placement=placement)
-    run = sums_ticks(l, identity_rows(n_alive), device_tables(decode_tables(code, ids), device),
-                     num_chunks, stagger, device, placement, drive)
-
-    def ticks(src, out, wires):
-        run(src.transpose(0, 1), out, wires)        # (n_alive, B_obj, Bp), a view
-
-    wire_shape = None if placement is None else (n_alive, W, k, S)
-    return streaming.Program(device=device, l=l, sc_words=sc_words,
-                             in_lead=(B_obj, n_alive), out_lead=(B_obj, k),
-                             wire_shape=wire_shape, ticks=ticks, placement=placement)
+            return jitcache.get(plan.key, build)(objects)
+    return run_program(plan, build, objects, sink)
 
 
 @trace.root("decode_many")
@@ -256,8 +160,8 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
     node writes object b's decoded blocks. Node 0 starts from zero sums. On
     the card the whole batch is one ``repair_chain`` launch; on the CPU
     each tick is one ``repair_tick`` over the object window, the sums in
-    slot b % W of the wire. ``num_chunks=None`` and ``stagger=None`` are tuned
-    (``autotune``). ``superchunk_words`` / ``sink`` stream the
+    slot b % W of the wire, ``num_chunks=None`` and ``stagger=None`` tuned
+    (``chain.call_plan``). ``superchunk_words`` / ``sink`` stream the
     batch stripe by stripe, as in ``pipelined_encode_many``. ``mesh``
     (len(ids) devices) places the survivors' chain positions, as in
     ``chain.pipelined_decode``.
@@ -269,17 +173,9 @@ def pipelined_decode_many(code: ErasureCode, ids, shards, num_chunks: int | None
                 f"sub-packetized — use code.decode_np")
         what = "pipelined_decode_many"
         ids = tuple(int(i) for i in ids)
-        dev, placement, mesh = resolve_placement(len(ids), mesh, None, device, what)
-        shards = batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
+        shards = _words(shards, code.l, len(ids), what, batch=("shards", "len(ids)"))
         B_obj, _, B = shards.shape
-        if num_chunks is None:
-            num_chunks = autotune.num_chunks_for("decode_many", code, B, chain_len=len(ids),
-                                                 extra_key=(B_obj,), device=dev)
-        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
-        stagger = tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
-    return run_program(
-        ("decode_many", code.cache_key, ids, mesh, B_obj, plan.sc_words, num_chunks, stagger,
-         dev),
-        lambda: _build_decode_many(code, ids, B_obj, plan.sc_words, num_chunks, stagger, dev,
-                                   placement),
-        shards, plan, sink, dev)
+        plan = call_plan(code, what, "decode_many", B, num_chunks, stagger, chain_len=len(ids),
+                         sets=(ids,), B_obj=B_obj, device=device,
+                         superchunk_words=superchunk_words, mesh=mesh)
+    return run_program(plan, lambda: build_decode(code, ids, plan), shards, sink)

@@ -29,8 +29,8 @@ On one card:
 The repair plan (helpers + R, a host Gaussian elimination), its tick
 operands (row table, product tables) and the decode matrix of a survivor
 set are cached, and each pipelined repair runs one cached program per
-(code, missing rows, survivors, batch, stripe width, num_chunks, stagger,
-device) key (``repro_torch.core.jitcache``), so warm calls do no host
+(code, missing rows, survivors, batch, stripe width, schedule, device) key
+(``repro_torch.core.jitcache``), so warm calls do no host
 algebra, build no tables and copy none to the card. Entry points run on the
 card unless the caller passes ``device="cpu"``, where the ticks and the
 encode run the kernels' plain PyTorch versions.
@@ -47,8 +47,11 @@ survivor shard it is given, so a caller passes only the plan's helpers
 (``repair_plan``) to copy no more than the chain reads, as
 ``storage.archive`` does.
 
-``num_chunks=None`` and ``stagger=None`` resolve through the tuner
-(``repro_torch.core.autotune``), over a chain of the plan's helpers.
+Where ticks run (the CPU, a placed chain), ``num_chunks=None`` and
+``stagger=None`` resolve through the tuner (``repro_torch.core.autotune``),
+over a chain of the plan's helpers, and key the program
+(``storage.chain.call_plan``); an unplaced call on the card, one launch,
+reaches no tuner and its program holds no schedule.
 
 ``mesh=`` (one device per helper of the plan, in the plan's order) places
 the helper chain on devices, as ``storage.chain`` does: mesh device i
@@ -64,13 +67,12 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import autotune, fault_tolerance, gf, pipeline, streaming, trace
+from repro_torch.core import fault_tolerance, gf, pipeline, streaming, trace
 from repro_torch.core.codes import ErasureCode
 from repro_torch.kernels.gf_encode import kernel, ops
-from repro_torch.storage import multi
-from repro_torch.storage.chain import (_check_chunking, _resolve_device, _words,
-                                       column_bitplanes, device_tables, resolve_placement,
-                                       run_program, stream_plan, sums_ticks)
+from repro_torch.storage.chain import (_check_chunking, _resolve_device, _words, build_sums,
+                                       call_plan, column_bitplanes, device_tables,
+                                       run_program)
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,64 +144,23 @@ def repair_np(code: ErasureCode, missing, ids, shards) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _survivor_shards(code: ErasureCode, ids, shards, what: str,
-                     device=None) -> torch.Tensor:
-    """The survivors' shards as words (on ``device``; None: where they lie)."""
+def _survivor_shards(code: ErasureCode, ids, shards, what: str, device=None,
+                     batch: tuple[str, str] | None = None) -> torch.Tensor:
+    """The survivors' shards as words, or a batch of them (``chain._words``),
+    on ``device`` (None: where they lie)."""
     if not code.positionwise:
         raise ValueError(f"{what}: {code.family} shards are sub-packetized — "
                          f"use code.repair_np")
-    return _words(shards, code.l, len(ids), what, device)
+    return _words(shards, code.l, len(ids), what, device, batch)
 
 
-def _build_repair(code: ErasureCode, missing: tuple[int, ...], ids: tuple[int, ...],
-                  B_obj: int | None, sc_words: int, num_chunks: int, stagger: int,
-                  device: torch.device, placement=None) -> streaming.Program:
-    """The pipelined repair program of one plan and stripe geometry: the
-    survivors' shards, (len(ids), sc_words) or for B_obj objects (B_obj,
-    len(ids), sc_words), -> the lost rows, (|missing|, sc_words) or (B_obj,
-    |missing|, sc_words). The helpers form a reverse chain, each position
-    reading its helper's shard in place through the row table. Unplaced it
-    keeps no wires; placed, one launch a position (``chain.sums_ticks``)."""
-    l = code.l
-    rows_table, tables = repair_operands(code, missing, ids, device)
-    h, rows = len(rows_table), len(missing)
-    S = sc_words // gf.LANES[l] // num_chunks
-    if B_obj is None:
-        def drive(step, wires):
-            pipeline.software_pipeline(step, h, num_chunks, (h, 1, rows, S), device=device,
-                                       wires=wires, placement=placement)
-        run = sums_ticks(l, rows_table, tables, num_chunks, 0, device, placement, drive)
-
-        def ticks(src, out, wires):
-            run(src[:, None], out[None], wires)  # (len(ids), 1, Bp), (1, rows, Bp)
-
-        wire_shape = None if placement is None else (h, 1, rows, S)
-        return streaming.Program(device=device, l=l, sc_words=sc_words, in_lead=(len(ids),),
-                                 out_lead=(rows,), wire_shape=wire_shape, ticks=ticks,
-                                 placement=placement)
-
-    def drive_many(step, wires):
-        pipeline.staggered_pipeline(step, h, num_chunks, (rows, S), num_objects=B_obj,
-                                    stagger=stagger, device=device, wires=wires,
-                                    placement=placement)
-    run_many = sums_ticks(l, rows_table, tables, num_chunks, stagger, device, placement,
-                          drive_many)
-
-    def ticks_many(src, out, wires):
-        run_many(src.transpose(0, 1), out, wires)   # (len(ids), B_obj, Bp), a view
-
-    W = pipeline.window_size(num_chunks, B_obj, stagger)
-    return streaming.Program(device=device, l=l, sc_words=sc_words,
-                             in_lead=(B_obj, len(ids)), out_lead=(B_obj, rows),
-                             wire_shape=None if placement is None else (h, W, rows, S),
-                             ticks=ticks_many, placement=placement)
-
-
-def _repair_placement(code: ErasureCode, missing, ids, mesh, device, what: str):
-    """(device, placement, mesh) of a pipelined repair: a mesh holds one
-    device per helper of the plan, in the plan's order."""
-    h = len(_repair_plan_cached(code, missing, ids)[0]) if mesh is not None else 0
-    return resolve_placement(h, mesh, None, device, what, reverse=True)
+def build_repair(code: ErasureCode, missing: tuple[int, ...], ids: tuple[int, ...],
+                 plan) -> streaming.Program:
+    """``chain.build_sums`` of a repair: the plan's helpers form a reverse
+    chain, each position reading its helper's shard in place through the
+    row table; the |missing| rows are the lost shards."""
+    return build_sums(code.l, *repair_operands(code, missing, ids, plan.device), len(ids),
+                      len(missing), plan)
 
 
 @trace.root("repair")
@@ -214,32 +175,24 @@ def pipelined_repair(code: ErasureCode, ids, shards, missing,
     replacement node (on the card one ``repair_chain`` launch, on the CPU
     one ``repair_tick`` a tick over the active helpers); they read their
     shards where they lie in ``shards`` (no gather), and the replacement
-    ends up with the repaired
-    (|missing|, B) words, returned on ``device``. ``num_chunks=None`` is
-    tuned (``autotune.num_chunks_for``). ``superchunk_words`` / ``sink`` stream the
-    repair stripe by stripe (``storage.chain.pipelined_encode``), so a lost
-    node on a many-stripe object heals without the card ever holding the
-    whole shards. ``mesh`` (one device per helper, ``repair_plan``'s order)
+    ends up with the repaired (|missing|, B) words, returned on ``device``.
+    ``num_chunks`` as in ``chain.pipelined_encode``, over a chain of the
+    helpers. ``superchunk_words`` / ``sink`` stream the repair stripe by
+    stripe (``storage.chain.pipelined_encode``), so a lost node on a
+    many-stripe object heals without the card ever holding the whole
+    shards. ``mesh`` (one device per helper, ``repair_plan``'s order)
     places the helper chain on devices; the result comes back on the first
     position's. Raises ValueError if the survivors are not decodable.
     """
     with trace.span("repro_torch.resolve"):
         what = "pipelined_repair"
-        ids = tuple(int(i) for i in ids)
-        missing = tuple(int(m) for m in missing)
-        dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
+        ids, missing = tuple(int(i) for i in ids), tuple(int(m) for m in missing)
         shards = _survivor_shards(code, ids, shards, what)
-        B = shards.shape[1]
-        if num_chunks is None:
-            helpers, _ = _repair_plan_cached(code, missing, ids)
-            num_chunks = autotune.num_chunks_for("repair", code, B, chain_len=len(helpers),
-                                                 device=dev)
-        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
-    return run_program(
-        ("repair", code.cache_key, missing, ids, mesh, plan.sc_words, num_chunks, dev),
-        lambda: _build_repair(code, missing, ids, None, plan.sc_words, num_chunks, 0, dev,
-                              placement),
-        shards, plan, sink, dev)
+        plan = call_plan(code, what, "repair", shards.shape[1], num_chunks,
+                         chain_len=len(_repair_plan_cached(code, missing, ids)[0]),
+                         sets=(missing, ids), device=device, superchunk_words=superchunk_words,
+                         mesh=mesh, reverse=True)
+    return run_program(plan, lambda: build_repair(code, missing, ids, plan), shards, sink)
 
 
 @trace.root("repair_many")
@@ -255,35 +208,20 @@ def pipelined_repair_many(code: ErasureCode, ids, shards, missing,
     (B_obj, |missing|, B) words on ``device``: on the card one
     ``repair_chain`` launch, on the CPU one ``repair_tick`` a tick over the
     object window; each chain position reads its helper's shard of object
-    b in place from ``shards``.
-    ``num_chunks=None`` and ``stagger=None`` are tuned (``autotune``).
-    ``superchunk_words`` / ``sink`` stream the batch stripe by
-    stripe. ``mesh`` places the helper chain as in ``pipelined_repair``.
+    b in place from ``shards``. ``num_chunks`` and ``stagger`` as in
+    ``multi.pipelined_encode_many``. ``superchunk_words`` / ``sink``
+    stream the batch stripe by stripe. ``mesh`` places the helper chain as in ``pipelined_repair``.
     Raises ValueError if the survivors are not decodable.
     """
     with trace.span("repro_torch.resolve"):
         what = "pipelined_repair_many"
-        if not code.positionwise:
-            raise ValueError(f"{what}: {code.family} shards are "
-                             f"sub-packetized — use code.repair_np")
-        ids = tuple(int(i) for i in ids)
-        missing = tuple(int(m) for m in missing)
-        dev, placement, mesh = _repair_placement(code, missing, ids, mesh, device, what)
-        shards = multi.batch_words(shards, code.l, len(ids), what, "shards", "len(ids)")
-        B_obj, _, B = shards.shape
-        if num_chunks is None:
-            helpers, _ = _repair_plan_cached(code, missing, ids)
-            num_chunks = autotune.num_chunks_for("repair_many", code, B,
-                                                 chain_len=len(helpers), extra_key=(B_obj,),
-                                                 device=dev)
-        plan, num_chunks = stream_plan(B, superchunk_words, code.l, num_chunks, what)
-        stagger = multi.tuned_stagger(code, B_obj, num_chunks, stagger, dev, what)
-    return run_program(
-        ("repair_many", code.cache_key, missing, ids, mesh, B_obj, plan.sc_words, num_chunks,
-         stagger, dev),
-        lambda: _build_repair(code, missing, ids, B_obj, plan.sc_words, num_chunks, stagger,
-                              dev, placement),
-        shards, plan, sink, dev)
+        ids, missing = tuple(int(i) for i in ids), tuple(int(m) for m in missing)
+        shards = _survivor_shards(code, ids, shards, what, batch=("shards", "len(ids)"))
+        plan = call_plan(code, what, "repair_many", shards.shape[2], num_chunks, stagger,
+                         chain_len=len(_repair_plan_cached(code, missing, ids)[0]),
+                         sets=(missing, ids), B_obj=shards.shape[0], device=device,
+                         superchunk_words=superchunk_words, mesh=mesh, reverse=True)
+    return run_program(plan, lambda: build_repair(code, missing, ids, plan), shards, sink)
 
 
 def star_repair(code: ErasureCode, ids, shards, missing, device=None) -> torch.Tensor:

@@ -497,8 +497,26 @@ def test_search_mode_on_the_card(cuda, monkeypatch):
     monkeypatch.setenv(autotune.TUNE_ENV, "search")
     autotune.reset()
     code = rr.RapidRAIDCode.make(8, 4, l=16, seed=0)
-    rep = autotune.prewarm(code, nwords=1 << 14, b_obj=2, chunk_counts=(1, 2, 4, 8))
+    probed = []                  # (entry, num_chunks, the mesh the probe ran on)
+    kernel.reset_launch_counts()
+    with monkeypatch.context() as m:
+        for mod, name in ((chain, "pipelined_encode"), (multi, "pipelined_encode_many")):
+            def spy(*args, _real=getattr(mod, name), _name=name, **kw):
+                probed.append((_name, kw.get("num_chunks"), kw.get("mesh")))
+                return _real(*args, **kw)
+            m.setattr(mod, name, spy)
+        rep = autotune.prewarm(code, nwords=1 << 14, b_obj=2, chunk_counts=(1, 2, 4, 8))
     assert rep["backend"] == "torch-cuda" and rep["stats"]["probes"] >= 5
+    # every chain probe ran the chain placed on this one card, a tick path
+    card = chain._resolve_device(cuda)
+    assert probed and all(mesh is not None and list(mesh.flat) == [card] * code.n
+                          for _, _, mesh in probed)
+    assert kernel.launch_counts()["chain_tick"] > 0
+    entry = json.loads(open(autotune.cache_path()).read())["entries"][autotune._key(
+        "encode", code.spec, "B=16384", "chain=8", "num_chunks", device=cuda)]
+    assert entry["value"] == rep["num_chunks_encode"] and len(entry["timings_s"]) > 1
+    assert {c for name, c, _ in probed if name == "pipelined_encode"} >= {
+        int(c) for c in entry["timings_s"]}
     assert set(json.loads(open(autotune.cache_path()).read())["entries"][
         autotune._key("dispatch", "l=16", "rows=8", "k=4", "B=16384", device=cuda)]
         ["timings_s"]) == {"vpu", "mxu"}

@@ -330,10 +330,14 @@ def test_unplaced_encode_many_programs_keep_no_wires():
     its positions' wires of W slots."""
     code = code_case(8, 4, 16)
     B = gf.LANES[16] * CHUNKS * 4
-    cpu = torch.device("cpu")
-    assert multi._build_encode_many(code, 3, B, CHUNKS, 1, cpu).wire_shape is None
-    placement = pipeline.position_devices([cpu] * code.n)
-    placed = multi._build_encode_many(code, 3, B, CHUNKS, 1, cpu, placement)
+
+    def plan(**where):
+        return chain.call_plan(code, "test", "encode_many", B, CHUNKS, 1, chain_len=code.n,
+                               B_obj=3, **where)
+    assert chain.build_encode(code, plan(device="cpu")).wire_shape is None
+    placed = chain.build_encode(code, plan(mesh=chain.make_chain_mesh(
+        code.n, devices=["cpu"] * code.n)))
+    assert placed.placement == pipeline.position_devices([torch.device("cpu")] * code.n)
     assert placed.wire_shape == (code.n, pipeline.window_size(CHUNKS, 3, 1), B // 2 // CHUNKS)
 
 

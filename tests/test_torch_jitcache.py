@@ -125,7 +125,7 @@ def test_warm_entry_point_builds_nothing(entry, l, monkeypatch):
         copies.append(tables.shape)
         return real(tables, device)
 
-    for mod in (chain, multi, repair):
+    for mod in (chain, repair):                  # the modules that copy tables
         monkeypatch.setattr(mod, "device_tables", spy)
     first = call()
     assert jitcache.stats()["misses"] == 1 and len(copies) == 1

@@ -188,12 +188,17 @@ def test_unplaced_sums_programs_keep_no_wires():
     encode_mesh = chain.make_chain_mesh(code.n, devices=["cpu"] * code.n)
     assert (chain.encode_program(code, B, CHUNKS, mesh=encode_mesh).wire_shape
             == (code.n, 1, B // gf.LANES[16] // CHUNKS))
-    builds = [lambda: multi._build_decode_many(code, tuple(ids), 3, B, CHUNKS, 1,
-                                               torch.device("cpu")),
-              lambda: repair._build_repair(code, tuple(lost), tuple(ids), None, B, CHUNKS, 0,
-                                           torch.device("cpu")),
-              lambda: repair._build_repair(code, tuple(lost), tuple(ids), 3, B, CHUNKS, 1,
-                                           torch.device("cpu"))]
+    cpu = torch.device("cpu")
+
+    def plan(B_obj, stagger):
+        return chain.call_plan(code, "test", "sums", B, CHUNKS, stagger, chain_len=len(ids),
+                               B_obj=B_obj, device=cpu)
+    decode = (chain.identity_rows(len(ids)), chain.decode_operands(code, ids, cpu), len(ids),
+              code.k)
+    rebuild = (*repair.repair_operands(code, lost, ids, cpu), len(ids), len(lost))
+    builds = [lambda: chain.build_sums(16, *decode, plan(3, 1)),
+              lambda: chain.build_sums(16, *rebuild, plan(None, None)),
+              lambda: chain.build_sums(16, *rebuild, plan(3, 1))]
     assert [build().wire_shape for build in builds] == [None] * 3
 
 
